@@ -228,6 +228,17 @@ def materialize_bytes(out_offsets: torch.Tensor, capacity: int, produce) -> torc
     return torch.where(valid, vals, torch.zeros((), dtype=torch.uint8, device=vals.device))
 
 
+def build_column(sizes: torch.Tensor, validity: torch.Tensor, produce, capacity: int | None = None):
+    """A new column from per-row byte sizes and a byte producer (see
+    materialize_bytes); without a capacity, syncs once for the total."""
+    if sizes.shape[0] == 0:
+        return empty_column(0, sizes.device)
+    out_offsets = cumsum0(sizes)
+    if capacity is None:
+        capacity = bucket_bytes(int(out_offsets[-1]))
+    return StringColumn(materialize_bytes(out_offsets, capacity, produce), out_offsets, validity)
+
+
 #: materializing ops allocate their static output bound directly (no size
 #: sync) when the bound is below this many bytes
 BOUND_SYNC_THRESHOLD = 1 << 28

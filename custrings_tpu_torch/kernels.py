@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "custrings_tpu_torch")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 LAUNCHES = {
@@ -40,6 +40,8 @@ LAUNCHES = {
     "nfa_bits": 0,
     "route_compact": 0,
     "route_expand": 0,
+    "span_back": 0,
+    "span_fwd": 0,
 }
 
 _lib = None
@@ -62,6 +64,13 @@ _SIGNATURES = {
     # route.cu
     "cs_compact": ([_P, _P, _P, _I64, _I32, _P, _P], _I32),
     "cs_expand": ([_P, _P, _P, _I64, _I64, _I32, _P, _P, _P], _I32),
+    # spans.cu
+    "cs_span_back": (
+        [_P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _I32, _I64, _I64, _P, _P], _I32
+    ),
+    "cs_span_fwd": (
+        [_P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _I32, _I64, _I64, _P, _P], _I32
+    ),
     "cs_error_string": ([_I32], ctypes.c_char_p),
 }
 
@@ -94,8 +103,22 @@ def lib_path(nvcc: str | None = None) -> str:
     return os.path.join(BUILD_DIR, f"libcustrings_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, p in zip(cmds, procs):
+        out, _ = p.communicate(timeout=900)
+        if p.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build(force: bool = False) -> str:
-    """Compile csrc/*.cu into lib_path() unless that library exists."""
+    """Compile csrc/*.cu into lib_path() unless that library exists: one
+    nvcc per source, all started together, then one link."""
     nvcc = _nvcc()
     path = lib_path(nvcc)
     if not force and os.path.exists(path):
@@ -103,12 +126,11 @@ def build(force: bool = False) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed:\n" + " ".join(cmd) + "\n" + res.stdout + res.stderr
-        )
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in sources]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(sources, objs)])
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, path)
     return path
 

@@ -1,10 +1,9 @@
 """Host flatten/unflatten of Python string lists through a C helper.
 
-Port of `custrings_tpu/native/build.py`.  The C source is the JAX
-package's own `custrings_tpu/native/fastcolumn.c`, compiled by file path
-with the system compiler into `build/custrings_tpu_torch/` at first use;
-this is a build, not a Python import, so no JAX module is loaded.  When
-there is no compiler (or no source), `load()` returns None and the
+Port of `custrings_tpu/native/build.py`.  The C source is the port's own
+copy of the JAX package's `fastcolumn.c`, `csrc/fastcolumn.c`, compiled
+with the system compiler into `build/custrings_tpu_torch/` at first use.
+When there is no compiler (or no source), `load()` returns None and the
 column module takes its pure-numpy host path.
 """
 
@@ -15,9 +14,9 @@ import os
 import subprocess
 import sysconfig
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_ROOT, "custrings_tpu", "native", "fastcolumn.c")
-BUILD_DIR = os.path.join(_ROOT, "build", "custrings_tpu_torch")
+_PKG = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(_PKG, "csrc", "fastcolumn.c")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "custrings_tpu_torch")
 
 _mod = None
 _tried = False

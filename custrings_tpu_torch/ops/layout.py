@@ -3,7 +3,8 @@
 Port of the main-path part of `custrings_tpu/ops/layout.py`: the
 memoized planes (`tail_plane`, `row_bounds_planes`), the ASCII facts
 (`is_ascii`, `row_nonascii_ids`), `max_row_bytes`, `padded_view`,
-`char_matrix` / `char_matrix_rows` and the host-side `length_buckets`.
+`char_matrix` / `char_matrix_rows`, the host-side `length_buckets`, the
+column-wide char index (`char_map`, `codepoints`) and `gather_bytes`.
 
 A padded view is built one of two ways, chosen by size as in the JAX
 package: below `STREAM_VIEW_MIN` output elements by the window gather
@@ -18,7 +19,8 @@ JAX package): ASCII rows take the gathered bytes as codepoints and the
 non-ASCII rows are decoded row-wise and patched in.  For any mix of rows
 that is the same matrix the JAX general route (char map + codepoint
 gather) builds whenever the width covers the rows, which is how every
-caller here uses it; so the char map and codepoint planes are not ported.
+caller here uses it.  The char map itself serves the ops that turn char
+positions into byte positions (span ops, `substr.slice_from`).
 """
 
 from __future__ import annotations
@@ -48,6 +50,11 @@ def valid_byte_mask(col: StringColumn) -> torch.Tensor:
     """bool[capacity]: True for real (non-padding) byte positions."""
     j = torch.arange(col.capacity, dtype=torch.int32, device=col.device)
     return j < col.offsets[-1]
+
+
+def gather_bytes(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """data[idx] with the indices clamped into the buffer."""
+    return data[idx.clamp(0, data.shape[0] - 1).to(torch.int64)]
 
 
 def is_ascii(col: StringColumn) -> bool:
@@ -397,3 +404,79 @@ def char_matrix_rows(col: StringColumn, bucket: LengthBucket):
             col, bucket.idx_c, torch.from_numpy(na_pos).to(col.device), bucket.width
         )
     return c[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class CharMap:
+    """Column-wide character index structures.
+
+    cs0          int32[capacity+1]  chars in bytes [0, j)
+    char_offsets int32[rows+1]      char index of each row start
+    char_pos     int32[capacity]    byte position of the c-th char (0 for
+                                    c >= total chars)
+    """
+
+    cs0: torch.Tensor
+    char_offsets: torch.Tensor
+    char_pos: torch.Tensor
+
+    def nchars(self) -> torch.Tensor:
+        """Characters per row, int32[rows]."""
+        return self.char_offsets[1:] - self.char_offsets[:-1]
+
+
+def char_map(col: StringColumn) -> CharMap:
+    """The column's CharMap, cached.  ASCII columns: chars are bytes, so
+    every structure is affine.  Otherwise the char starts (non-continuation
+    bytes) are counted by one K3 scan and their byte positions are a
+    stable compaction of the positions by the start mask (K4c)."""
+    c = col.cache
+    if "char_map" not in c:
+        cap = col.capacity
+        if is_ascii(col):
+            j = torch.arange(cap + 1, dtype=torch.int32, device=col.device)
+            cm = CharMap(torch.minimum(j, col.offsets[-1]), col.offsets, j[:cap])
+        else:
+            starts = ((col.data & 0xC0) != 0x80) & valid_byte_mask(col)
+            j = torch.arange(cap, dtype=torch.int32, device=col.device)
+            (char_pos,), cs0 = compact_arrays(starts, [j])
+            cm = CharMap(cs0, cs0[col.offsets.to(torch.int64)], char_pos)
+        c["char_map"] = cm
+    return c["char_map"]
+
+
+def _codepoints_at_bytes(data: torch.Tensor) -> torch.Tensor:
+    """int32[capacity]: the codepoint whose UTF-8 sequence starts at byte
+    j (garbage at continuation bytes), by shifts along the buffer."""
+    def sh(t):
+        return torch.nn.functional.pad(data[t:], (0, t)).to(torch.int32) & 0x3F
+
+    b0 = data.to(torch.int32)
+    b1, b2, b3 = sh(1), sh(2), sh(3)
+    w = char_width_from_lead(b0)
+    return torch.where(
+        w == 1,
+        b0,
+        torch.where(
+            w == 2,
+            ((b0 & 0x1F) << 6) | b1,
+            torch.where(
+                w == 3,
+                ((b0 & 0x0F) << 12) | (b1 << 6) | b2,
+                ((b0 & 0x07) << 18) | (b1 << 12) | (b2 << 6) | b3,
+            ),
+        ),
+    )
+
+
+def codepoints(col: StringColumn) -> torch.Tensor:
+    """int32[capacity]: codepoint of the c-th character of the column; only
+    c < total chars is meaningful (cached)."""
+    c = col.cache
+    if "codepoints" not in c:
+        if is_ascii(col):
+            c["codepoints"] = col.data.to(torch.int32)
+        else:
+            pos = char_map(col).char_pos.to(torch.int64)
+            c["codepoints"] = _codepoints_at_bytes(col.data)[pos]
+    return c["codepoints"]

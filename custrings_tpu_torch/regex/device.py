@@ -4,10 +4,17 @@ Port of the table part of `custrings_tpu/regex/device.py`
 (`DeviceProgram.__init__`, `closure_tensor`, `class_match_table`,
 `_lut128_hit`, `_class_membership`, and the alnum test of `_ctx_bits`;
 the context bits themselves are built in `nfa_bits.NFABits._pos_tables`,
-as the TPU kernel's `_pos_tables` builds them).  The tables are built
-on the host with the same numpy code and kept as CPU tensors; `on(name,
-device)` hands out a cached device copy.  The boolean matcher itself is
-`regex/nfa_bits.py` (K2); the span executors are not ported yet.
+as the TPU kernel's `_pos_tables` builds them), and the span router
+`spans_single` / `all_spans` on the bit span passes (K5).  The tables are
+built on the host with the same numpy code and kept as CPU tensors;
+`on(name, device)` hands out a cached device copy.  The boolean matcher
+itself is `regex/nfa_bits.py` (K2), the span passes `regex/span_bits.py`.
+
+Only programs the span passes take are ported: `longest_safe` or
+`end_unique`, and at most 32 instructions.  The JAX package's other span
+engines (min-plus `nfa_spans`, the ordered-closure `ordered_spans` and the
+per-row DFS `run_spans`) are not ported yet; `spans_single` raises
+NotImplementedError for the programs that need them.
 """
 
 from __future__ import annotations
@@ -224,3 +231,81 @@ class DeviceProgram:
         cE = c[..., None, None]
         hi_hit = ((cE >= lo) & (cE <= hi)).any(dim=-1)
         return torch.where((c < 65536)[..., None], hit & (c >= 0)[..., None], hi_hit)
+
+    def _span_bits(self):
+        """The program's span passes (K5), or None when it is not
+        certified or has more than 32 instructions (cached)."""
+        if not hasattr(self, "_sbits"):
+            from .nfa_bits import NFABits, pallas_supported
+            from .span_bits import SpanBits, span_bits_ok
+
+            ok = span_bits_ok(self.prog) and pallas_supported(self)
+            self._sbits = SpanBits(NFABits(self)) if ok else None
+        return self._sbits
+
+    def _span_bits_or_raise(self):
+        sb = self._span_bits()
+        if sb is None:
+            from .span_bits import span_bits_ok
+
+            if not span_bits_ok(self.prog):
+                need = (
+                    "the ordered-closure engine (DeviceProgram.ordered_spans, "
+                    "custrings_tpu/regex/device.py:783) or the per-row DFS "
+                    "(run_spans, :945)"
+                )
+                why = "is neither longest_safe nor end_unique"
+            else:
+                need = "the min-plus engine (DeviceProgram.nfa_spans, custrings_tpu/regex/device.py:541)"
+                why = f"has {self.I} instructions (the bit span passes take at most 32)"
+            raise NotImplementedError(
+                f"the span program {why}: it needs {need}, "
+                "which is not ported yet (ROADMAP queue 1, item 10)"
+            )
+        return sb
+
+    def spans_single(self, chars, lengths, start_pos, ascii: bool = False):
+        """First match at or after start_pos per row: (matched bool[N],
+        begin int32[N], end int32[N]), on the bit span passes (K5)."""
+        return self._span_bits_or_raise().single(chars, lengths, start_pos, ascii)
+
+    def all_spans(self, chars, lengths, validity, Rcap: int, ascii: bool = False,
+                  counts_only: bool = False):
+        """ALL non-overlapping leftmost matches per row: a round loop around
+        `spans_single` with the reference's advance rule (count.cu:178-199:
+        begin = end if end > begin else begin + 1).
+
+        Returns (counts int32[N], begins int32[N, Rcap], ends int32[N,
+        Rcap]); match r of a row sits in column r, -1 past its count (with
+        counts_only the planes are [N, 1] of -1).  A row leaves the loop
+        for good at its first miss or when its begin passes its length.
+
+        The per-position planes are built once for all rounds (the JAX
+        package rebuilds them inside each round), and a row that has left
+        the loop is given a start past its length, so the span passes skip
+        it; its result was masked out anyway."""
+        sb = self._span_bits_or_raise()
+        N, L = chars.shape
+        dev = chars.device
+        membw, uid = sb.tables(chars, lengths, ascii)
+        lens = lengths.to(torch.int32)
+        W = 1 if counts_only else Rcap
+        B = torch.full((N, W), -1, dtype=torch.int32, device=dev)
+        E = torch.full((N, W), -1, dtype=torch.int32, device=dev)
+        counts = torch.zeros(N, dtype=torch.int32, device=dev)
+        begins = torch.zeros(N, dtype=torch.int32, device=dev)
+        active = validity.to(torch.bool).clone()
+        skip = torch.full_like(begins, (1 << 31) - 1)
+        r = 0
+        while r < Rcap and bool(active.any()):
+            m, b, e = sb.spans(chars, lens, torch.where(active, begins, skip), membw, uid)
+            hit = active & m
+            counts += hit.to(torch.int32)
+            if not counts_only:
+                B[:, r] = torch.where(hit, b, -1)
+                E[:, r] = torch.where(hit, e, -1)
+            begins = torch.where(hit, torch.where(e > b, e, begins + 1), begins)
+            active = hit & (begins <= lens)
+            r += 1
+        return counts, B, E
+

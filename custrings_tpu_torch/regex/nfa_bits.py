@@ -90,6 +90,13 @@ class NFABits:
             self._on[key] = self.table.to(device)
         return self._on[key]
 
+    def _crows_on(self, device):
+        """int64[U, I] closure rows on `device` (the plain versions' table)."""
+        key = ("crows", str(device))
+        if key not in self._on:
+            self._on[key] = torch.tensor(self.crows, dtype=torch.int64, device=device)
+        return self._on[key]
+
     def matches(self, chars, lengths, anchored: bool, ascii: bool = False):
         """bool[N]: does the program match row r (anchored: at 0)?
 
@@ -176,37 +183,44 @@ class NFABits:
         used), one iteration per position p = 0..L."""
         N, L = chars.shape
         dev = chars.device
-        i64 = torch.int64
-        lens = lengths.to(i64)
-        crows = torch.tensor(self.crows, dtype=i64, device=dev)  # [U, I]
-        state = torch.zeros(N, dtype=i64, device=dev)
+        lens = lengths.to(torch.int64)
+        state = torch.zeros(N, dtype=torch.int64, device=dev)
         matched = torch.zeros(N, dtype=torch.bool, device=dev)
-        zero = torch.zeros((), dtype=i64, device=dev)
         for p in range(L + 1):
             pc = min(p, L - 1)
-            cur = torch.where(p < lens, chars[:, pc].to(i64), zero)
+            cur = torch.where(p < lens, chars[:, pc].to(torch.int64), 0)
             if anchored:
                 inj = ~matched if p == 0 else torch.zeros_like(matched)
             else:
                 inj = ~matched & (p <= lens)
             state = torch.where(inj, state | self.start_bits, state)
-            rows = crows[uid[:, p]] if self.U > 1 else crows[0].expand(N, self.I)
-            closed = torch.zeros_like(state)
-            for i in range(self.I):
-                closed |= torch.where(((state >> i) & 1) > 0, rows[:, i], zero)
+            closed = self._or_rows(state, self._closure_rows(uid, p, N, dev))
             matched |= (closed & self.end_bits) != 0
-            pred = membw[:, pc].to(i64) & 0xFFFFFFFF
-            for i, a in self.char_pairs:
-                pred |= (cur == a).to(i64) << i
-            if self.any_bits:
-                pred |= torch.where((cur != 10) & (cur != 0), self.any_bits, 0)
-            if self.anynl_bits:
-                pred |= torch.where(cur != 0, self.anynl_bits, 0)
-            pred = torch.where(cur != 0, pred, zero)
-            fire = closed & pred
-            nstate = torch.zeros_like(state)
-            for i in range(self.I):
-                if self.nrows[i]:
-                    nstate |= torch.where(((fire >> i) & 1) > 0, self.nrows[i], 0)
-            state = nstate
+            state = self._or_rows(closed & self._pred_plain(cur, membw[:, pc]), self.nrows)
         return matched
+
+    def _closure_rows(self, uid, p: int, N: int, device):
+        """int64[N, I]: each row's closure table at position p."""
+        crows = self._crows_on(device)
+        return crows[uid[:, p]] if self.U > 1 else crows[0].expand(N, self.I)
+
+    def _or_rows(self, bits, rows):
+        """OR of rows[..., i] over the set bits i of `bits` (int64[N]);
+        rows is int64[N, I] or a list of I ints."""
+        out = torch.zeros_like(bits)
+        for i in range(self.I):
+            r = rows[i] if isinstance(rows, list) else rows[:, i]
+            out |= torch.where(((bits >> i) & 1) > 0, r, 0)
+        return out
+
+    def _pred_plain(self, cur, memb):
+        """int64[N] consume predicate bits of chars `cur` (int64[N], 0 past
+        the row) with class bits `memb` (int32[N])."""
+        pred = memb.to(torch.int64) & 0xFFFFFFFF
+        for i, a in self.char_pairs:
+            pred |= (cur == a).to(torch.int64) << i
+        if self.any_bits:
+            pred |= torch.where((cur != 10) & (cur != 0), self.any_bits, 0)
+        if self.anynl_bits:
+            pred |= torch.where(cur != 0, self.anynl_bits, 0)
+        return torch.where(cur != 0, pred, 0)

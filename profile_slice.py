@@ -3,10 +3,12 @@
     python3 profile_slice.py         # after chip_smoke.py has passed
 
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
-"THE"), dictionary_encode) on a fresh 1M-row column of
-chip_smoke.make_corpus(): the wall time without the profiler, and under
-torch.profiler the wall time, the summed device time and the twelve
-device items that took longest.  Then the parts of contains_re timed
+"THE"), dictionary_encode, the growing and shrinking replace_literal
+("THEE", "T"), split_record(" ")) and each span op (count_re("the|that"),
+findall_record(#\\w+), replace_re((\\w+)@(\\w+))) on a fresh 1M-row
+column of chip_smoke.make_corpus(): the wall time without the profiler,
+and under torch.profiler the wall time, the summed device time and the
+twelve device items that took longest.  Then the parts of contains_re timed
 alone with CUDA events: the char matrix (streaming view and K1 window
 routes), the per-position tables and the K2 wrapper.  Last, the three
 ops in sequence on a fresh column on each padded-view route (the
@@ -40,7 +42,7 @@ def main() -> int:
         print("profile_slice: needs a CUDA card", file=sys.stderr)
         return 1
     from custrings_tpu_torch import column
-    from custrings_tpu_torch.ops import layout, modify, unique
+    from custrings_tpu_torch.ops import layout, modify, split, unique
     from custrings_tpu_torch.regex import ops as rx
 
     strs = cs.make_corpus(cs.ROWS, seed=0)
@@ -52,6 +54,12 @@ def main() -> int:
         "contains_re": lambda c: rx.contains_re(c, cs.PATTERN),
         "replace_literal": lambda c: modify.replace_literal(c, "the", "THE"),
         "dictionary_encode": lambda c: unique.dictionary_encode(c),
+        "replace_grow": lambda c: modify.replace_literal(c, "the", "THEE"),
+        "replace_shrink": lambda c: modify.replace_literal(c, "the", "T"),
+        "split_record": lambda c: split.split_record(c, " "),
+        "count_re": lambda c: rx.count_re(c, cs.SPAN_COUNT),
+        "findall_record": lambda c: rx.findall_record(c, cs.SPAN_FIND),
+        "replace_re": lambda c: rx.replace_re(c, cs.SPAN_REPLACE, "EMAIL"),
     }
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):

@@ -13,7 +13,7 @@ setup(
     packages=find_packages(exclude=("tests",)),
     package_data={
         "custrings_tpu.native": ["*.c"],
-        "custrings_tpu_torch": ["csrc/*.cu"],
+        "custrings_tpu_torch": ["csrc/*.cu", "csrc/*.c"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],

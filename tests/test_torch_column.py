@@ -118,3 +118,20 @@ def test_port_and_chip_smoke_import_no_jax():
         [sys.executable, "-c", code], cwd=root, env=env, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
+
+
+def test_native_source_lies_inside_the_port():
+    """The host helper builds from the port's own copy of fastcolumn.c,
+    never from a file of the JAX package, and that copy still works."""
+    import os
+
+    from custrings_tpu_torch import native
+
+    pkg = os.path.dirname(os.path.abspath(native.__file__))
+    src = os.path.abspath(native.SRC)
+    assert os.path.commonpath([src, pkg]) == pkg, src
+    assert os.path.isfile(src)
+    with open(src, "rb") as f, open(os.path.join(os.path.dirname(jcol.__file__), "native", "fastcolumn.c"), "rb") as g:
+        assert b"PyInit_fastcolumn" in f.read() and b"PyInit_fastcolumn" in g.read()
+    if native.load() is not None:
+        assert native.load().unflatten(*native.load().flatten(["ab", None, ""])[:3], 3) == ["ab", None, ""]
