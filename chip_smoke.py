@@ -22,13 +22,26 @@ Phases, each printing one JSON line:
   4. spans   — count("the|that"), findall_record(r"#\w+") and
                replace(r"(\w+)@(\w+)", "EMAIL") on the same rows, checked
                against Python `re`, with the round count of each all_spans
-  5. launches — each path's kernel counters (reset just before the path,
+     logs    — make_logs(2^20) and make_long_logs(2,048) rows, and the
+               Python `re` oracles of the matchers phase
+     kernels — K2b (nfa_words) on the log rows for ERR, ISO and MONTH,
+               K6 (hash) over the tweet corpus, K7 (compact_bytes) over its
+               capacity, each against its plain version, exactly
+     compact — compact_bytes(data, data != " ", capacity) once, against
+               torch.masked_select
+  5. matchers — contains and match through the facade: ERR, ISO, MONTH on
+               the 2^20 log rows (K2b), BIG on their first 65,536 (the
+               vector engine), ERR, ISO, MONTH on the 2,048 long rows (the
+               chunked engine), every row against Python `re`
+  6. hash    — nvstrings.hash on the tweet rows against a numpy
+               MurmurHash3_32 (seed 31), itself held to the reference vector
+  7. launches — each path's kernel counters (reset just before the path,
                read just after) are above zero for the kernels it runs
 Then the kernels JSON line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line.  Any failure exits nonzero.
 
-make_corpus() builds the tweet-like corpus from a seed with numpy; the
-CPU tests import it at a small size.
+make_corpus() builds the tweet-like corpus and make_logs() the log lines
+from a seed with numpy; the CPU tests import them at a small size.
 """
 
 from __future__ import annotations
@@ -47,6 +60,21 @@ PATTERN = r"#\w+"
 SPAN_COUNT = "the|that"
 SPAN_FIND = r"#\w+"
 SPAN_REPLACE = r"(\w+)@(\w+)"
+#: the log filters of the matchers phase: K2b takes the first three
+#: (51 instructions with two closure variants, 45, 92); BIG (291
+#: instructions) goes to the vector engine
+ERR = r"\b(error|warning|critical|fatal|exception|timeout)\b"
+ISO = r"\d{4}-\d{2}-\d{2}T\d{2}:\d{2}:\d{2}(\.\d{1,6})?(Z|[+\-]\d{2}:\d{2})"
+MONTH = (r"(january|february|march|april|may|june|july|august|september|october|november"
+         r"|december) \d{1,2}")
+BIG = (r"\b(january|february|march|april|may|june|july|august|september|october|november"
+       r"|december|monday|tuesday|wednesday|thursday|friday|saturday|sunday|connection refused"
+       r"|out of memory|permission denied|disk full|segmentation fault|stack overflow"
+       r"|null pointer|broken pipe|timed out|access denied)\b")
+K2B_PATTERNS = (ERR, ISO, MONTH)
+LOG_ROWS = 1 << 20
+BIG_ROWS = 1 << 16
+LONG_ROWS = 2048
 REPS = 5
 #: the H100 SXM's device-memory rate (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -134,6 +162,163 @@ def make_corpus(n: int, seed: int = 0, max_bytes: int = 280):
     return rows
 
 
+_LEVELS = ["INFO", "DEBUG", "WARN", "ERROR", "FATAL"]
+_LEVEL_P = [0.55, 0.2, 0.13, 0.09, 0.03]
+_HOSTS = ["web-01", "web-02", "api-7", "db-1.internal", "cache-3", "worker-12",
+          "10.0.3.17:8080", "192.168.1.20:443", "172.16.0.5:5432", "edge"]
+_LOG_WORDS = (
+    "request served user login connect started finished retry queue job id path upstream "
+    "payload bytes ms status ok sent received cache hit miss pool worker task scheduled "
+    "shutdown config reload GET POST /api/v1/items /health 200 404 503 took latency "
+    "handler client server node shard replica commit flush compaction checkpoint"
+).split()
+#: the alert words and phrases of ERR and BIG, and near misses of them
+_ALERTS = ["error", "warning", "critical", "fatal", "exception", "timeout", "Error", "errors",
+           "timeouts", "connection refused", "out of memory", "permission denied", "disk full",
+           "segmentation fault", "stack overflow", "null pointer", "broken pipe", "timed out",
+           "access denied", "error:", "(timeout)"]
+_DATES = ["january 5", "march 17", "december 31", "may 1", "october 09", "june", "monday",
+          "friday", "sunday", "august 2024", "november 3rd"]
+_LOG_NONASCII = ["café", "über", "naïve", "日本語", "🎉", "Straße", "ошибка", "тайм-аут"]
+
+
+def _stamps(rng, n: int):
+    """n ISO-8601 timestamps: 0..6 fraction digits, a zone Z, +02:00 or
+    -05:30, or (a quarter of them) none, which leaves them malformed."""
+    parts = [rng.integers(lo, hi, n).tolist() for lo, hi in
+             ((2000, 2030), (1, 13), (1, 29), (0, 24), (0, 60), (0, 60), (0, 8), (0, 10**6), (0, 4))]
+    zones = ("Z", "+02:00", "-05:30", "")
+    return [
+        f"{y:04d}-{mo:02d}-{d:02d}T{h:02d}:{mi:02d}:{s:02d}"
+        + (f".{us:06d}"[: k + 1] if 1 <= k <= 6 else "") + zones[z]
+        for y, mo, d, h, mi, s, k, us, z in zip(*parts)
+    ]
+
+
+def make_logs(n: int, seed: int = 0):
+    """Log lines of 60..300 UTF-8 bytes: an ISO-8601 timestamp (~85%, some
+    without a zone; ~10% syslog-style), a host, a level among
+    INFO/DEBUG/WARN/ERROR/FATAL and a message that sometimes holds the
+    alert words and phrases of ERR/BIG or a date of MONTH; ~5% are
+    continuation lines (the message alone); ~2% non-ASCII, ~1% None, ~1%
+    empty.  The messages are slices of one seeded word stream."""
+    rng = np.random.default_rng(seed)
+    words = [_LOG_WORDS[i] for i in rng.integers(0, len(_LOG_WORDS), 1 << 16).tolist()]
+    stream = " ".join(words)
+    wstart = np.concatenate([[0], np.cumsum([len(w) + 1 for w in words])]).tolist()
+    target = rng.integers(60, 301, n).tolist()
+    kind = rng.random(n).tolist()
+    level = rng.choice(len(_LEVELS), size=n, p=_LEVEL_P).tolist()
+    host = rng.integers(0, len(_HOSTS), n).tolist()
+    first = rng.integers(0, (1 << 16) - 80, n).tolist()
+    extras = []  # (word stream) insertions: alert words, dates, non-ASCII words
+    for table, p in ((_ALERTS, 0.3), (_DATES, 0.1), (_LOG_NONASCII, 0.02)):
+        hit = (rng.random(n) < p).tolist()
+        pick = rng.integers(0, len(table), n).tolist()
+        at = rng.integers(0, 8, n).tolist()
+        extras.append([(table[k], a) if h else None for h, k, a in zip(hit, pick, at)])
+    stamps = _stamps(rng, n)
+    syslog = [f"Mar {d:2d} {h:02d}:{m:02d}:00" for d, h, m in
+              zip(rng.integers(1, 29, n).tolist(), rng.integers(0, 24, n).tolist(),
+                  rng.integers(0, 60, n).tolist())]
+    out = []
+    for i in range(n):
+        k = kind[i]
+        if k < 0.02:
+            out.append(None if k < 0.01 else "")
+            continue
+        w0 = first[i]
+        msg = stream[wstart[w0]: wstart[w0 + 60]]
+        for ex in extras:
+            if ex[i] is not None:
+                text, a = ex[i]
+                off = wstart[w0 + a] - wstart[w0]
+                msg = msg[:off] + text + " " + msg[off:]
+        if k < 0.87:
+            msg = f"{stamps[i]} {_HOSTS[host[i]]} {_LEVELS[level[i]]} {msg}"
+        elif k < 0.97:
+            msg = f"{syslog[i]} {_HOSTS[host[i]]} {_LEVELS[level[i]]} {msg}"
+        out.append(_cut(msg, target[i]))
+    return out
+
+
+_TRACE = ('Traceback (most recent call last):\n  File "app/handler.py", line 42, in serve\n'
+          '    result = upstream.call(payload)\n  File "app/client.py", line 7, in call\n'
+          '    raise TimeoutError("upstream timed out")\nTimeoutError: upstream timed out\n')
+
+
+def make_long_logs(n: int, seed: int = 0):
+    """Rows of 2,048..8,192 UTF-8 bytes: log lines of make_logs joined by
+    newlines (half of the rows), quiet lines only (no alert word, no ISO
+    timestamp; 30%), or a stack trace among quiet lines (20%)."""
+    rng = np.random.default_rng(seed)
+    pool = [s for s in make_logs(4096, seed + 1) if s]
+    quiet = [s[s.index(" ") + 1:] for s in pool
+             if not re.search(ERR, s) and not re.search(ISO, s) and " " in s]
+    out = []
+    for i, (target, k) in enumerate(zip(rng.integers(2048, 8193, n), rng.random(n))):
+        src = pool if k < 0.5 else quiet
+        lines = [_TRACE] if k >= 0.8 else []
+        size = sum(len(s.encode()) + 1 for s in lines)
+        while size < target:
+            s = src[rng.integers(0, len(src))]
+            lines.insert(rng.integers(0, len(lines) + 1), s)
+            size += len(s.encode()) + 1
+        out.append(_cut("\n".join(lines), int(target)))
+    return out
+
+
+def murmur3_np(strs):
+    """MurmurHash3_32 (seed 31) of each str's UTF-8 bytes, numpy over a
+    zero-padded [n, w] view (None for None); the oracle of the hash phase."""
+    raw = [b"" if s is None else s.encode("utf-8") for s in strs]
+    n = len(raw)
+    lens = np.fromiter((len(b) for b in raw), np.int64, n)
+    w4 = max(-(-int(lens.max(initial=0)) // 4) * 4, 4)
+    buf = np.zeros((n, w4), np.uint8)
+    flat = np.frombuffer(b"".join(raw), np.uint8)
+    rows = np.repeat(np.arange(n), lens)
+    cols = np.arange(flat.size) - np.repeat(np.cumsum(lens) - lens, lens)
+    buf[rows, cols] = flat
+    blocks = buf.view("<u4").astype(np.uint32)
+    u32 = np.uint32
+
+    def rotl(x, r):
+        return (x << u32(r)) | (x >> u32(32 - r))
+
+    def mix(k):
+        return rotl(k * u32(0xCC9E2D51), 15) * u32(0x1B873593)
+
+    h = np.full(n, 31, np.uint32)
+    nb = lens // 4
+    with np.errstate(over="ignore"):
+        for i in range(w4 // 4):
+            hn = rotl(h ^ mix(blocks[:, i]), 13) * u32(5) + u32(0xE6546B64)
+            h = np.where(i < nb, hn, h)
+        tail = np.zeros(n, np.uint32)
+        rem = lens & 3
+        for t in (2, 1, 0):
+            byte = buf[np.arange(n), np.minimum(nb * 4 + t, w4 - 1)].astype(np.uint32)
+            tail = np.where(rem > t, tail ^ (byte << u32(8 * t)), tail)
+        h = np.where(rem > 0, h ^ mix(tail), h)
+        h = h ^ lens.astype(np.uint32)
+        h ^= h >> u32(16)
+        h = h * u32(0x85EBCA6B)
+        h ^= h >> u32(13)
+        h = h * u32(0xC2B2AE35)
+        h ^= h >> u32(16)
+    return [None if s is None else int(v) for s, v in zip(strs, h)]
+
+
+#: the reference's MurmurHash3 vector (python/tests/test_convert.py::test_hash)
+HASH_VECTOR = (
+    ["1234", "5678", "90", None, "-876", "543.2", "-0.12", ".55", "-.002", "", "de", "abc123",
+     "123abc", "456e", "-1.78e+5"],
+    [1762063109, 3008518326, 3419725934, None, 1225421472, 2952354928, 2093756495, 1292375090,
+     2098378342, 1257683291, 3758453927, 213530502, 2957649541, 4248160425, 2735531987],
+)
+
+
 def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -159,6 +344,19 @@ def _time_ms(torch, fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _timed(torch, fn):
+    """(fn's result, ms) of one call timed with CUDA events: for the plain
+    walks that take seconds a call, whose one run is also the comparison's."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def _compare(torch, name, got, want):
@@ -324,16 +522,27 @@ def _kernel_phase(torch, col, width):
         ("span_fwd", "csrc/spans.cu", "custrings_tpu/regex/pallas_spans.py:266",
          fwd_shapes, _walk(torch, sb0.nfa, 12, b00, torch.where(b00 >= 0, e00, -1)), None),
     ]
+    return _measure(torch, cases, slow=("nfa_bits", "span_back", "span_fwd"))
+
+
+def _measure(torch, cases, slow=(), one_plain=()):
+    """Each case's kernel against its plain version at each shape, exactly,
+    with median times; the plain walks of `slow` take 3 timed calls, those
+    of `one_plain` one (which is also the comparison's)."""
     out = []
     for name, source, replaces, shapes, (nbytes, nops), library in cases:
         rec = {"name": name, "route": "cuda", "source": f"custrings_tpu_torch/{source}",
                "replaces": replaces, "tolerance": "exact (torch.equal)", "shapes": [],
                "max_abs_err": 0.0}
-        slow_plain = name in ("nfa_bits", "span_back", "span_fwd")
         for label, kern, plain in shapes:
-            err = _compare(torch, f"{name} {label}", kern(), plain())
+            if name in one_plain:
+                want, plain_ms = _timed(torch, plain)
+                err = _compare(torch, f"{name} {label}", kern(), want)
+                del want
+            else:
+                err = _compare(torch, f"{name} {label}", kern(), plain())
+                plain_ms = _time_ms(torch, plain, reps=3 if name in slow else REPS)
             ms = _time_ms(torch, kern)
-            plain_ms = _time_ms(torch, plain, reps=3 if slow_plain else REPS)
             rec["shapes"].append({"shape": label, "ms": ms, "plain_ms": plain_ms})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
         # the headline numbers are the first (main-path) shape's
@@ -346,6 +555,82 @@ def _kernel_phase(torch, col, width):
         _emit({"phase": "kernel", **rec})
         out.append(rec)
     return out
+
+
+def _walk_words(torch, nfa, first, end):
+    """(bytes, ops) of K2b's walk over positions first..end-1 of each row:
+    chars and W membership words (and uid with several closure variants)
+    read at each position plus 5 bytes a row, and per position at least the
+    injection, one closure row and the end test over the W words."""
+    npos = (end.to(torch.int64) - first.to(torch.int64)).clamp(min=0).sum().item()
+    per_pos = 4 + 4 * nfa.W32 + (4 if nfa.U > 1 else 0)
+    return npos * per_pos + 5 * first.shape[0], npos * (8 + 6 * nfa.W32)
+
+
+def _compact_inputs(torch, data):
+    """K7's two masks over the capacity (byte is not a space; 5% kept,
+    seeded), each with its K3 prefix count and the JAX callers' out_cap
+    (the kept count rounded up to whole 2,048-byte tiles)."""
+    from custrings_tpu_torch.column import cumsum0
+    from custrings_tpu_torch.ops import compact
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    sparse = (torch.rand(data.shape[0], generator=g) < 0.05).cuda()
+    out = []
+    for label, keep in (("byte is not a space", data != 32), ("5% kept", sparse)):
+        keep8 = keep.view(torch.uint8)
+        k0 = cumsum0(keep8)
+        kept = int(k0[-1])
+        out.append((label, keep, keep8, k0, compact.TB * max(-(-kept // compact.TB), 1)))
+    return out
+
+
+def _kernel_phase_rest(torch, col, logs_col, err_starts):
+    """K2b on the log rows (ERR, ISO and MONTH, unanchored and anchored;
+    ERR unanchored is the headline shape), K6 over the tweet corpus and K7
+    over its capacity, each against its plain version."""
+    from custrings_tpu_torch.ops import compact, hash, layout
+    from custrings_tpu_torch.regex import ops as rx
+
+    chars, nch = layout.char_matrix(logs_col)
+    N, L = chars.shape
+    k2b = []
+    for pat in K2B_PATTERNS:
+        nfa = rx._get_nfa(pat)
+        membw, uid = nfa._pos_tables(chars, nch, True)  # as the main path builds them
+        name = {ERR: "ERR", ISO: "ISO", MONTH: "MONTH"}[pat]
+        for anchored in (False, True):
+            mode = "anchored" if anchored else "unanchored"
+            tag = f"{name} ({nfa.I} insts, W32 {nfa.W32}, U {nfa.U}) {mode} [{N},{L}]"
+            k2b.append((tag,
+                        lambda nfa=nfa, m=membw, u=uid, a=anchored: nfa._matches_words(chars, nch, m, u, a),
+                        lambda nfa=nfa, m=membw, u=uid, a=anchored: nfa._matches_plain(chars, nch, m, u, a)))
+    # the positions K2b must read for ERR unanchored: each row up to at
+    # least its leftmost match begin (Python re), the whole row where
+    # nothing matches
+    starts = torch.tensor(err_starts, dtype=torch.int32).cuda()
+    row_end = torch.minimum(nch, torch.full_like(nch, L))
+    k2b_end = torch.where(starts >= 0, starts + 1, row_end)
+    nbytes = int(col.offsets[-1])
+    n, cap = col.size, col.capacity
+    masks = _compact_inputs(torch, col.data)
+    cases = [
+        ("nfa_words", "csrc/nfa_words.cu", "custrings_tpu/regex/pallas_nfa.py:332", k2b,
+         _walk_words(torch, rx._get_nfa(ERR), torch.zeros_like(nch), k2b_end), None),
+        ("hash", "csrc/hash.cu", "custrings_tpu/ops/pallas_hash.py:111",
+         [(f"tweets [{n} rows, {nbytes} bytes]", lambda: hash._hash_launch(col),
+           lambda: hash._hash_plain(col))],
+         # each byte once, offsets and output; ~10 ops per 4-byte block
+         (nbytes + 4 * (n + 1) + 4 * n, 10 * (nbytes // 4) + 20 * n), None),
+        ("compact_bytes", "csrc/compact.cu", "custrings_tpu/ops/pallas_compact.py:184",
+         [(f"u8[{cap}] {label} -> u8[{oc}]",
+           lambda k8=k8, k0=k0, oc=oc: compact._compact_launch(col.data, k8, k0, oc),
+           lambda keep=keep, oc=oc: compact._compact_plain(col.data, keep, oc))
+          for label, keep, k8, k0, oc in masks],
+         (cap * (1 + 1 + 4) + masks[0][4], 0),
+         lambda: torch.masked_select(col.data, masks[0][1])),
+    ]
+    return _measure(torch, cases, one_plain=("nfa_words",))
 
 
 def _expanded(res):
@@ -383,13 +668,19 @@ def _category_oracle(strs):
     return keys, [rank[s] for s in strs]
 
 
-def _stepper(torch, times):
+def _stepper(torch, times, peaks=None):
+    """step(name, fn): fn's result, its host-clock seconds in times[name]
+    and, with `peaks`, its peak device memory in peaks[name]."""
     def step(name, fn):
         torch.cuda.synchronize()
+        if peaks is not None:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         times[name] = time.perf_counter() - t0
+        if peaks is not None:
+            peaks[name] = torch.cuda.max_memory_allocated()
         return out
 
     return step
@@ -519,6 +810,62 @@ def _check_spans(strs, results):
     }
 
 
+def _matcher_sets(logs, long_rows):
+    """(set, rows, [(filter, pattern)]) of the matchers phase: the log rows
+    on K2b, their first BIG_ROWS on the vector engine, the long rows on the
+    chunked engine."""
+    k2b = [("ERR", ERR), ("ISO", ISO), ("MONTH", MONTH)]
+    return [("logs", logs, k2b), ("logs_big", logs[:BIG_ROWS], [("BIG", BIG)]), ("long", long_rows, k2b)]
+
+
+def _matcher_oracle(sets):
+    """{(set, filter, op): per-row results} from Python re (None for null
+    rows)."""
+    want = {}
+    for set_name, strs, filters in sets:
+        for fname, pat in filters:
+            rx = re.compile(pat)
+            want[set_name, fname, "contains"] = [None if s is None else rx.search(s) is not None for s in strs]
+            want[set_name, fname, "match"] = [None if s is None else rx.match(s) is not None for s in strs]
+    return want
+
+
+def _run_matchers(torch, sets):
+    """contains and match of every filter of every set through the facade;
+    returns (results, per-op seconds, per-op peak device memory)."""
+    from custrings_tpu_torch import nvstrings
+
+    times, peaks, out = {}, {}, {}
+    step = _stepper(torch, times, peaks)
+    for set_name, strs, filters in sets:
+        s = step(f"{set_name} to_device", lambda: nvstrings.to_device(strs, device="cuda"))
+        for fname, pat in filters:
+            out[set_name, fname, "contains"] = step(f"{set_name} contains {fname}", lambda: s.contains(pat))
+            out[set_name, fname, "match"] = step(f"{set_name} match {fname}", lambda: s.match(pat))
+        del s
+    return out, times, peaks
+
+
+def _run_hash(torch, strs):
+    """nvstrings.hash through the facade; returns (hashes, per-op seconds,
+    per-op peak device memory)."""
+    from custrings_tpu_torch import nvstrings
+
+    times, peaks = {}, {}
+    step = _stepper(torch, times, peaks)
+    s = step("to_device", lambda: nvstrings.to_device(strs, device="cuda"))
+    return step("hash", s.hash), times, peaks
+
+
+def _run_compact(torch, data):
+    """compact_bytes(data, data != ' ', capacity), the JAX package's entry
+    point; returns (result, the keep mask)."""
+    from custrings_tpu_torch.ops import compact
+
+    keep = data != 32
+    return compact.compact_bytes(data, keep, data.shape[0]), keep
+
+
 def _driven(torch, kernels, run, strs):
     """Run one path with every launch counter set to 0 just before it and
     read just after; returns (run's result, the counters)."""
@@ -533,6 +880,9 @@ def _driven(torch, kernels, run, strs):
 SLICE_KERNELS = ("scan_sum", "scan_max", "window_bytes", "window_words", "nfa_bits",
                  "route_compact", "route_expand")
 SPAN_KERNELS = ("span_back", "span_fwd")
+MATCHER_KERNELS = ("nfa_words",)
+HASH_KERNELS = ("hash",)
+COMPACT_KERNELS = ("compact_bytes",)
 
 
 def main() -> int:
@@ -565,6 +915,28 @@ def main() -> int:
            "width": width, "seconds": corpus_s})
 
     recs = _kernel_phase(torch, col, width)
+
+    t0 = time.perf_counter()
+    logs = make_logs(LOG_ROWS, seed=2)
+    long_rows = make_long_logs(LONG_ROWS, seed=3)
+    logs_s = time.perf_counter() - t0
+    sets = _matcher_sets(logs, long_rows)
+    t0 = time.perf_counter()
+    want = _matcher_oracle(sets)
+    rx_err = re.compile(ERR)
+    err_starts = [-1 if s is None or (m := rx_err.search(s)) is None else m.start() for s in logs]
+    oracle_s = time.perf_counter() - t0
+    logs_col = column.from_host_strings(logs, "cuda")
+    _emit({"phase": "logs", "rows": LOG_ROWS, "bytes": int(logs_col.offsets[-1]),
+           "capacity": logs_col.capacity, "width": layout.max_row_bytes(logs_col),
+           "long_rows": LONG_ROWS, "long_bytes": sum(len(s.encode()) for s in long_rows),
+           "seconds": logs_s, "oracle_seconds": oracle_s})
+    recs += _kernel_phase_rest(torch, col, logs_col, err_starts)
+    del logs_col
+    (compacted, keep), compact_launches = _driven(torch, kernels, _run_compact, col.data)
+    if not torch.equal(compacted[: int(keep.sum())], torch.masked_select(col.data, keep)):
+        raise AssertionError("compact_bytes disagrees with torch.masked_select")
+    del compacted, keep
     _view_phase(torch, col, width)
     del col
     torch.cuda.empty_cache()
@@ -596,14 +968,44 @@ def main() -> int:
     if any(sbad.values()):
         raise AssertionError(f"span ops disagree with Python re: {sbad}")
 
-    _emit({"phase": "launches", "slice": slice_launches, "spans": span_launches})
-    missing = [k for k in SLICE_KERNELS if slice_launches[k] <= 0]
-    missing += [k for k in SPAN_KERNELS if span_launches[k] <= 0]
+    # the matchers: first-use set-up (pattern compiles, tables) on a few
+    # rows of each set, then the whole sets once
+    _run_matchers(torch, [(n, rows[:64], f) for n, rows, f in sets])
+    (mresults, mtimes, mpeaks), matcher_launches = _driven(torch, kernels, _run_matchers, sets)
+    mbad = {" ".join(k): _mismatches(mresults[k], want[k]) for k in want}
+    _emit({"phase": "matchers", "rows": {n: len(rows) for n, rows, _ in sets},
+           "ms": {k: v * 1e3 for k, v in mtimes.items()}, "max_memory_allocated": mpeaks,
+           "true_rows": {" ".join(k): sum(bool(b) for b in v) for k, v in mresults.items()},
+           "mismatches": mbad})
+    if any(mbad.values()):
+        raise AssertionError(f"matchers disagree with Python re: {mbad}")
+    del mresults, want
+    torch.cuda.empty_cache()
+
+    hash_strs, hash_want = HASH_VECTOR
+    if murmur3_np(hash_strs) != hash_want:
+        raise AssertionError("the numpy MurmurHash3 oracle misses the reference vector")
+    _run_hash(torch, hash_strs)  # first use
+    (hashes, htimes, hpeaks), hash_launches = _driven(torch, kernels, _run_hash, strs)
+    hbad = {"hash": _mismatches(hashes, murmur3_np(strs))}
+    _emit({"phase": "hash", "rows": ROWS, "ms": {k: v * 1e3 for k, v in htimes.items()},
+           "max_memory_allocated": hpeaks, "mismatches": hbad})
+    if any(hbad.values()):
+        raise AssertionError(f"hash disagrees with the numpy MurmurHash3: {hbad}")
+
+    paths = {"slice": slice_launches, "spans": span_launches, "matchers": matcher_launches,
+             "hash": hash_launches, "compact": compact_launches}
+    _emit({"phase": "launches", **paths})
+    missing = []
+    for path_name, need in (("slice", SLICE_KERNELS), ("spans", SPAN_KERNELS),
+                            ("matchers", MATCHER_KERNELS), ("hash", HASH_KERNELS),
+                            ("compact", COMPACT_KERNELS)):
+        missing += [f"{path_name}: {k}" for k in need if paths[path_name][k] <= 0]
     if missing:
         raise AssertionError(f"kernels their path never launched: {missing}")
 
     for r in recs:
-        r["launches"] = slice_launches[r["name"]] + span_launches[r["name"]]
+        r["launches"] = sum(p[r["name"]] for p in paths.values())
     _emit({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
                            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")} for r in recs

@@ -42,6 +42,9 @@ LAUNCHES = {
     "route_expand": 0,
     "span_back": 0,
     "span_fwd": 0,
+    "nfa_words": 0,
+    "hash": 0,
+    "compact_bytes": 0,
 }
 
 _lib = None
@@ -71,6 +74,12 @@ _SIGNATURES = {
     "cs_span_fwd": (
         [_P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _I32, _I64, _I64, _P, _P], _I32
     ),
+    # nfa_words.cu
+    "cs_nfa_words": ([_P, _P, _P, _P, _P, _I32, _I64, _I64, _I32, _I32, _P, _P], _I32),
+    # hash.cu
+    "cs_hash": ([_P, _P, _I64, _P, _P], _I32),
+    # compact.cu
+    "cs_compact_bytes": ([_P, _P, _P, _I64, _I64, _P, _P], _I32),
     "cs_error_string": ([_I32], ctypes.c_char_p),
 }
 

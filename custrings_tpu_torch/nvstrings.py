@@ -1,9 +1,9 @@
 """nvstrings facade over the port's ops.
 
 Port of the entry points of `custrings_tpu/nvstrings.py` that the ported
-ops serve: `to_device`, `to_host`, `size`, `contains`, `count`,
-`findall`, `findall_record`, `replace` (literal of any length, or regex
-for certified span programs), `split_record` and `split` (with a
+ops serve: `to_device`, `to_host`, `size`, `contains`, `match`, `count`,
+`findall`, `findall_record`, `hash`, `replace` (literal of any length, or
+regex for certified span programs), `split_record` and `split` (with a
 delimiter).  Return shapes are the JAX facade's.  The rest of the ~95
 methods follow the ROADMAP's queue 1.
 """
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import column as _col
+from .ops import hash as _hash
 from .ops import modify as _modify
 from .ops import split as _split
 from .regex import ops as _rx
@@ -42,9 +43,20 @@ class nvstrings:
             raise NotImplementedError(
                 "literal contains (ops/find.py) is not ported yet: ROADMAP queue 1"
             )
-        res = _rx.contains_re(self._col, pat).cpu().tolist()
+        return self._masked(_rx.contains_re(self._col, pat))
+
+    def match(self, pat):
+        """Per row: does `pat` match at its start (None for null rows)."""
+        return self._masked(_rx.match_re(self._col, pat))
+
+    def hash(self):
+        """Per row: MurmurHash3_32 (seed 31) of its bytes, as a Python int
+        (None for null rows)."""
+        return self._masked(_hash.hash_mm3(self._col))
+
+    def _masked(self, res):
         vals = self._col.validity.cpu().tolist()
-        return [b if v else None for b, v in zip(res, vals)]
+        return [b if v else None for b, v in zip(res.cpu().tolist(), vals)]
 
     def count(self, pat):
         """Per row: the number of non-overlapping matches (0 for null rows)."""

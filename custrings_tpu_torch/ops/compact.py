@@ -1,0 +1,60 @@
+"""K7: stable byte compaction by a keep mask, `compact_bytes`.
+
+Port of `custrings_tpu/ops/pallas_compact.py:compact_bytes` (TPU kernel
+`_compact_p` / `_compact_kernel`).  The CUDA kernel is `csrc/compact.cu`:
+one block per output tile of TB bytes, which finds its input window by a
+binary search in the prefix count and gathers the tile's kept bytes in
+shared memory.  It takes every `out_cap`, so the TPU's window-overflow
+test and its scatter fallback have no counterpart.  The plain version is
+a masked select into a zero buffer; a CPU tensor takes it.
+
+Nothing in the package calls it, as in the JAX package: its users are the
+tests and `chip_smoke.py`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..column import cumsum0
+
+#: output tile bytes of the CUDA kernel (the TPU kernel's TB)
+TB = 2048
+
+
+def _compact_plain(data: torch.Tensor, keep: torch.Tensor, out_cap: int) -> torch.Tensor:
+    kept = torch.masked_select(data, keep)[:out_cap]
+    out = torch.zeros(out_cap, dtype=torch.uint8, device=data.device)
+    out[: kept.shape[0]] = kept
+    return out
+
+
+def _compact_launch(data: torch.Tensor, keep8: torch.Tensor, k0: torch.Tensor, out_cap: int) -> torch.Tensor:
+    out = torch.empty(out_cap, dtype=torch.uint8, device=data.device)
+    if out_cap == 0:
+        return out
+    for t in (data, keep8, k0):
+        kernels.require_cuda(t, "compact_bytes")
+    err = kernels.lib().cs_compact_bytes(
+        data.data_ptr(), keep8.data_ptr(), k0.data_ptr(), data.shape[0], out_cap,
+        out.data_ptr(), kernels.stream_ptr(data),
+    )
+    kernels.check(err, "compact_bytes")
+    kernels.LAUNCHES["compact_bytes"] += 1
+    return out
+
+
+def compact_bytes(data: torch.Tensor, keep: torch.Tensor, out_cap: int) -> torch.Tensor:
+    """uint8[out_cap]: the bytes of `data` where `keep`, stably compacted,
+    then zeros (kept bytes past out_cap drop out)."""
+    cap = data.shape[0]
+    if data.dim() != 1 or data.dtype != torch.uint8:
+        raise ValueError(f"compact_bytes: expected a uint8 buffer, got {data.dtype}{tuple(data.shape)}")
+    if keep.shape != (cap,) or keep.dtype not in (torch.bool, torch.uint8) or keep.device != data.device:
+        raise ValueError(f"compact_bytes: expected a bool[{cap}] mask beside the data")
+    out_cap = int(out_cap)
+    keep8 = keep.contiguous().view(torch.uint8)
+    if not data.is_cuda:
+        return _compact_plain(data, keep8.bool(), out_cap)
+    return _compact_launch(data.contiguous(), keep8, cumsum0(keep8), out_cap)

@@ -1,14 +1,18 @@
-"""Regex program tables and the per-character predicate helpers.
+"""Regex program tables, the per-character predicates and the two dense
+boolean engines.
 
-Port of the table part of `custrings_tpu/regex/device.py`
-(`DeviceProgram.__init__`, `closure_tensor`, `class_match_table`,
-`_lut128_hit`, `_class_membership`, and the alnum test of `_ctx_bits`;
-the context bits themselves are built in `nfa_bits.NFABits._pos_tables`,
-as the TPU kernel's `_pos_tables` builds them), and the span router
-`spans_single` / `all_spans` on the bit span passes (K5).  The tables are
-built on the host with the same numpy code and kept as CPU tensors;
-`on(name, device)` hands out a cached device copy.  The boolean matcher
-itself is `regex/nfa_bits.py` (K2), the span passes `regex/span_bits.py`.
+Port of `custrings_tpu/regex/device.py`: the tables (`DeviceProgram.
+__init__`, `closure_tensor`, `class_match_table`), the predicate helpers
+(`_lut128_hit`, `_class_membership`, `_ctx_bits`, `_char_pred`), the
+per-position closure variants that K2 and K2b read (`position_uid`, the
+uid half of the TPU kernels' `_pos_tables`), the vector engine
+`nfa_matches` and the chunked engine `nfa_matches_chunked` (plain torch,
+as the JAX package left them to XLA), and the span router `spans_single`
+/ `all_spans` on the bit span passes (K5).  The tables are built on the
+host with the same numpy code and kept as CPU tensors; `on(name,
+device)` hands out a cached device copy.  The bit matchers are
+`regex/nfa_bits.py` (K2) and `regex/nfa_words.py` (K2b), the span passes
+`regex/span_bits.py`.
 
 Only programs the span passes take are ported: `longest_safe` or
 `end_unique`, and at most 32 instructions.  The JAX package's other span
@@ -133,6 +137,34 @@ def class_match_table(prog: Program) -> np.ndarray:
     return tab
 
 
+def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Boolean (batched) matrix product as a float product and a > 0 test:
+    every product term is 0 or 1, so a sum is positive exactly when one
+    term is, in any float type and summation order (float16 on the card,
+    float32 on the CPU)."""
+    ft = torch.float16 if a.is_cuda else torch.float32
+    return (a.to(ft) @ b.to(ft)) > 0
+
+
+def _combine_pairs(T, A, S, M):
+    """One round of the chunked engine's fold over the chunk axis (dim 1):
+    segments 2k and 2k+1 combine; an odd last segment passes through."""
+    C = T.shape[1]
+    h = C // 2
+    x, y = slice(0, 2 * h, 2), slice(1, 2 * h, 2)
+    T1, A1, S1, M1 = T[:, x], A[:, x], S[:, x], M[:, x]
+    T2, A2, S2, M2 = T[:, y], A[:, y], S[:, y], M[:, y]
+    out = (
+        _bmm(T1, T2),
+        A1 | _bmm(T1, A2[..., None])[..., 0],
+        _bmm(S1[..., None, :], T2)[..., 0, :] | S2,
+        M1 | M2 | (S1 & A2).any(dim=-1),
+    )
+    if C % 2:
+        out = tuple(torch.cat([o, z[:, C - 1 :]], dim=1) for o, z in zip(out, (T, A, S, M)))
+    return out
+
+
 def _pack128(bits: np.ndarray) -> np.ndarray:
     """bool[..., 128] -> int32[..., 4] holding uint32 bit patterns: bit b of
     word w = bits[w*32 + b]."""
@@ -147,6 +179,8 @@ class DeviceProgram:
     def __init__(self, prog: Program):
         self.prog = prog
         self.I = prog.n_insts
+        self.types = torch.from_numpy(prog.types.astype(np.int32))
+        self.args = torch.from_numpy(prog.args.astype(np.int32))
         closure = closure_tensor(prog)
         uniq, ctx_map = [], np.zeros(32, np.int32)
         for ctx in range(32):
@@ -213,24 +247,225 @@ class DeviceProgram:
         safe = c.clamp(0, flags.shape[0] - 1)
         return (c > 0) & (c < flags.shape[0]) & ((flags[safe] & FLAG_ALPHANUM) != 0)
 
-    def _class_membership(self, c: torch.Tensor, ascii: bool = False) -> torch.Tensor:
-        """bool[..., n_classes] for chars c.
+    def _class_hit(self, c: torch.Tensor, k: int, ascii: bool = False) -> torch.Tensor:
+        """bool[...]: is char c in class k?
 
         BMP chars read the 64K table; chars >= 0x10000 compare against the
         explicit ranges, builtins never matching there.  ascii=True (every
         c < 128): packed-bit test, no table gather."""
         if ascii:
-            packs = self.on("cls_ascii", c.device)
-            return torch.stack(
-                [self._lut128_hit(c, packs[k]) for k in range(packs.shape[0])], dim=-1
-            )
-        tab = self.on("class_tab", c.device)
-        hit = tab[:, c.clamp(0, 65535)].movedim(0, -1)
-        lo = self.on("cls_lo", c.device)
-        hi = self.on("cls_hi", c.device)
-        cE = c[..., None, None]
+            return self._lut128_hit(c, self.on("cls_ascii", c.device)[k])
+        hit = self.on("class_tab", c.device)[k][c.clamp(0, 65535)]
+        lo, hi = self.on("cls_lo", c.device)[k], self.on("cls_hi", c.device)[k]
+        cE = c[..., None]
         hi_hit = ((cE >= lo) & (cE <= hi)).any(dim=-1)
-        return torch.where((c < 65536)[..., None], hit & (c >= 0)[..., None], hi_hit)
+        return torch.where(c < 65536, hit & (c >= 0), hi_hit)
+
+    def _class_membership(self, c: torch.Tensor, ascii: bool = False) -> torch.Tensor:
+        """bool[..., n_classes] for chars c (`_class_hit` of every class)."""
+        n = self.cls_ascii.shape[0]
+        return torch.stack([self._class_hit(c, k, ascii) for k in range(n)], dim=-1)
+
+    @staticmethod
+    def _ctx(prev_c, cur_c, al_prev, al_cur, is_bos) -> torch.Tensor:
+        """int32 anchor-context bits from a position's previous and current
+        chars (0 outside the row), their alnum flags and its BOS flag."""
+        i32 = torch.int32
+        return (
+            is_bos.to(i32) * CTX_BOS
+            | (prev_c == 10).to(i32) * CTX_PREV_NL
+            | (cur_c == 0).to(i32) * CTX_EOS
+            | (cur_c == 10).to(i32) * CTX_CUR_NL
+            | (al_cur != al_prev).to(i32) * CTX_WB
+        )
+
+    def _ctx_bits(self, prev_c, cur_c, is_bos, ascii: bool = False) -> torch.Tensor:
+        return self._ctx(prev_c, cur_c, self._alnum(prev_c, ascii), self._alnum(cur_c, ascii), is_bos)
+
+    def position_uid(self, chars, lengths, ascii: bool = False):
+        """int32[N, L+1]: the closure variant of each position of the char
+        matrix, EOS sentinel included, from its context bits; None for a
+        program with one closure variant (no anchors or word boundaries),
+        which always takes variant 0.  Shared by K2 and K2b."""
+        if self.closure_unique.shape[0] == 1:
+            return None
+        L = chars.shape[1]
+        dev = chars.device
+        chars = chars.to(torch.int32)
+        alnum = self._alnum(chars, ascii).to(torch.int32)
+        pos = torch.arange(L + 1, dtype=torch.int32, device=dev)[None, :]
+        lensE = lengths.to(torch.int32)[:, None]
+        cur_ok = pos < lensE
+        prev_ok = (pos > 0) & (pos - 1 < lensE)
+        F = torch.nn.functional
+        curc = torch.where(cur_ok, F.pad(chars, (0, 1)), 0)
+        prevc = torch.where(prev_ok, F.pad(chars, (1, 0))[:, : L + 1], 0)
+        al_cur = torch.where(cur_ok, F.pad(alnum, (0, 1)), 0)
+        al_prev = torch.where(prev_ok, F.pad(alnum, (1, 0))[:, : L + 1], 0)
+        return self.on("ctx_map", dev)[self._ctx(prevc, curc, al_prev, al_cur, pos == 0)]
+
+    def _char_pred(self, c: torch.Tensor, ascii: bool = False) -> torch.Tensor:
+        """bool[..., I]: does char c satisfy each consuming inst?  The
+        sentinel 0 satisfies none."""
+        types = self.on("types", c.device)
+        args = self.on("args", c.device)
+        cE = c[..., None]
+        in_class = self._class_membership(c, ascii)
+        cls_hit = in_class[..., args.clamp(0, in_class.shape[-1] - 1)]
+        pred = (
+            ((types == CHAR) & (cE == args))
+            | ((types == ANY) & (cE != 10))
+            | (types == ANYNL)
+            | ((types == CCLASS) & cls_hit)
+            | ((types == NCCLASS) & ~cls_hit)
+        )
+        return pred & (cE != 0)
+
+    def _select_close(self, x: torch.Tensor, uid: torch.Tensor) -> torch.Tensor:
+        """bool, x's shape: the eps-closure of the state sets x ([M, I] or
+        [M, I, I], each row a set) under each leading row's variant uid[M]:
+        one boolean product per unique closure, then a select."""
+        cu = self.on("closure_unique", x.device)
+        out = None
+        for k in range(cu.shape[0]):
+            ck = _bmm(x, cu[k])
+            if out is None:
+                out = ck
+            else:
+                cond = (uid == k).view(-1, *([1] * (x.dim() - 1)))
+                out = torch.where(cond, ck, out)
+        return out
+
+    def _step_next(self, fire: torch.Tensor) -> torch.Tensor:
+        """bool: the states the fired consuming insts lead to."""
+        return _bmm(fire, self.on("next_mat", fire.device))
+
+    # -- the vector engine -------------------------------------------------
+
+    def nfa_matches(self, chars, lengths, anchored: bool, ascii: bool = False) -> torch.Tensor:
+        """bool[N]: does the program match row r (anchored: at 0)?
+
+        Port of `DeviceProgram.nfa_matches`: the state is bool[N, I], one
+        step per position p = 0..L, one [N, I] @ [I, I] product per unique
+        closure then a select by uid, and a product with the next-pointer
+        matrix.  The route for programs K2 and K2b do not take, and the
+        tests' oracle.  chars int32[N, L] codepoints 0-padded; lengths
+        int32[N]; ascii=True promises every codepoint < 128."""
+        N, L = chars.shape
+        dev = chars.device
+        lengths = lengths.to(torch.int32)
+        state = torch.zeros((N, self.I), dtype=torch.bool, device=dev)
+        matched = torch.zeros(N, dtype=torch.bool, device=dev)
+        if N == 0:
+            return matched
+        start = self.on("start_vec", dev)
+        is_end = self.on("is_end", dev)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        for p in range(L + 1):
+            cur = torch.where(p < lengths, chars[:, min(p, L - 1)].to(torch.int32), zero)
+            pp = max(min(p - 1, L - 1), 0)
+            prev = torch.where((p > 0) & (p - 1 < lengths), chars[:, pp].to(torch.int32), zero)
+            if anchored:
+                inject = ~matched if p == 0 else torch.zeros_like(matched)
+            else:
+                # starts only at positions 0..len (p = len is the EOS slot)
+                inject = ~matched & (p <= lengths)
+            state = state | (start[None, :] & inject[:, None])
+            bos = torch.full((N,), p == 0, dtype=torch.bool, device=dev)
+            uid = self.on("ctx_map", dev)[self._ctx_bits(prev, cur, bos, ascii)]
+            closed = self._select_close(state, uid)
+            matched = matched | (closed & is_end[None, :]).any(dim=1)
+            state = self._step_next(closed & self._char_pred(cur, ascii))
+        return matched
+
+    # -- the chunked engine ------------------------------------------------
+
+    def nfa_matches_chunked(self, chars, lengths, anchored: bool, G: int, ascii: bool = False) -> torch.Tensor:
+        """bool[N]: `nfa_matches` for long rows, by chunks of G chars.
+
+        Port of `DeviceProgram.nfa_matches_chunked`.  Each of the C chunks
+        of a row evolves, over its G positions, its transfer relation
+          T [I, I]  entry state i -> state j at the chunk's end
+          A [I]     entry state i reaches END inside the chunk
+          S [I]     a start injected inside the chunk reaches state j
+          M         a start injected inside the chunk reaches END inside
+        and two segments compose associatively (o = boolean product)
+          T = T1 o T2   A = A1 | T1 o A2   S = S1 o T2 | S2   M = M1 | M2 | S1.A2
+        so the chunks combine in log2(C) rounds of pairwise combines, then
+        one sentinel step at the padded end closes the row."""
+        N, L = chars.shape
+        I = self.I
+        dev = chars.device
+        if N == 0:
+            return torch.zeros(0, dtype=torch.bool, device=dev)
+        C = max(-(-L // G), 1)
+        Lp = C * G
+        chars = chars.to(torch.int32)
+        lengths = lengths.to(torch.int32)
+        if Lp != L:
+            chars = torch.nn.functional.pad(chars, (0, Lp - L))
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        goff = torch.arange(C, dtype=torch.int32, device=dev)[None, :] * G
+        clen = (lengths[:, None] - goff).clamp(0, G)
+        prev0 = torch.where(
+            (goff > 0) & (goff - 1 < lengths[:, None]),
+            torch.gather(chars, 1, (goff - 1).clamp(min=0).expand(N, C).to(torch.int64)),
+            zero,
+        )
+        Nc = N * C
+        ch = chars.reshape(Nc, G)
+        clen_f = clen.reshape(Nc)
+        prev0_f = prev0.reshape(Nc)
+        cidx = torch.arange(Nc, dtype=torch.int32, device=dev) % C
+        glob0 = cidx == 0
+        goff_f = cidx * G
+        len_f = lengths[:, None].expand(N, C).reshape(Nc)
+        start = self.on("start_vec", dev)
+        is_end = self.on("is_end", dev)
+        ctx_map = self.on("ctx_map", dev)
+
+        T = torch.eye(I, dtype=torch.bool, device=dev).expand(Nc, I, I)
+        A = torch.zeros((Nc, I), dtype=torch.bool, device=dev)
+        S = torch.zeros((Nc, I), dtype=torch.bool, device=dev)
+        M = torch.zeros(Nc, dtype=torch.bool, device=dev)
+        for g in range(G):
+            cur = torch.where(g < clen_f, ch[:, g], zero)
+            prev = prev0_f if g == 0 else torch.where(g - 1 < clen_f, ch[:, g - 1], zero)
+            bos = glob0 & (g == 0)
+            uid = ctx_map[self._ctx_bits(prev, cur, bos, ascii)]
+            inj = (goff_f + g) <= len_f
+            cS = self._select_close(S | (start[None, :] & inj[:, None]), uid)
+            cT = self._select_close(T, uid)
+            M = M | (cS & is_end[None, :]).any(dim=1)
+            A = A | (cT & is_end[None, None, :]).any(dim=2)
+            pred = self._char_pred(cur, ascii)
+            S = self._step_next(cS & pred)
+            T = self._step_next(cT & pred[:, None, :])
+
+        T = T.reshape(N, C, I, I)
+        A = A.reshape(N, C, I)
+        S = S.reshape(N, C, I)
+        M = M.reshape(N, C)
+        # fold the chunk axis: pair (2k, 2k+1) in each round; an odd last
+        # segment passes through unchanged (the combine is associative)
+        while T.shape[1] > 1:
+            T, A, S, M = _combine_pairs(T, A, S, M)
+        T1, A1, S1, M1 = T[:, 0], A[:, 0], S[:, 0], M[:, 0]
+
+        sv = start[None, :].expand(N, I)
+        if anchored:
+            matched = (sv & A1).any(dim=1)
+            vend = _bmm(sv[:, None, :], T1)[:, 0, :]
+        else:
+            matched = M1
+            # inject at the final EOS slot only for rows whose EOS is there
+            vend = S1 | (sv & (Lp <= lengths)[:, None])
+        # the sentinel step at p = Lp (EOS context; consumes nothing)
+        prevL = torch.where((Lp - 1 < lengths) & (Lp > 0), chars[:, Lp - 1], zero)
+        bos = torch.full((N,), Lp == 0, dtype=torch.bool, device=dev)
+        uid = ctx_map[self._ctx_bits(prevL, torch.zeros(N, dtype=torch.int32, device=dev), bos, ascii)]
+        closed = self._select_close(vend, uid)
+        return matched | (closed & is_end[None, :]).any(dim=1)
 
     def _span_bits(self):
         """The program's span passes (K5), or None when it is not

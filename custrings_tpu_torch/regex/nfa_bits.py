@@ -20,7 +20,6 @@ import torch
 from .. import kernels
 from ..column import i32_bits
 from .compiler import ANY, ANYNL, CCLASS, CHAR, NCCLASS
-from .device import CTX_BOS, CTX_CUR_NL, CTX_EOS, CTX_PREV_NL, CTX_WB
 
 MAX_BITS_INSTS = 32
 
@@ -111,40 +110,14 @@ class NFABits:
     def _pos_tables(self, chars, lengths, ascii: bool):
         """(membw int32[N, L], uid int32[N, L+1] or None) per-position
         tables, in int32: the class bit plane of each char, and the closure
-        variant of each position (EOS sentinel included) from its context
-        bits.  A program with one closure variant (no anchors or word
-        boundaries) always takes variant 0: uid is None then."""
-        dp = self.dp
-        N, L = chars.shape
-        dev = chars.device
+        variant of each position (`DeviceProgram.position_uid`, None for a
+        program with one variant)."""
         chars = chars.to(torch.int32)
-        in_class = dp._class_membership(chars, ascii)  # [N, L, n_cls]
-        membw = torch.full((N, L), self.memb_B, dtype=torch.int32, device=dev)
+        membw = torch.full(chars.shape, self.memb_B, dtype=torch.int32, device=chars.device)
         for c, m in enumerate(self.memb_M):
             if m:
-                membw ^= in_class[..., c].to(torch.int32) * m
-        if self.U == 1:
-            return membw, None
-        alnum = dp._alnum(chars, ascii).to(torch.int32)
-        pos = torch.arange(L + 1, dtype=torch.int32, device=dev)[None, :]
-        lensE = lengths.to(torch.int32)[:, None]
-        cur_ok = pos < lensE
-        prev_ok = (pos > 0) & (pos - 1 < lensE)
-        F = torch.nn.functional
-        curc = torch.where(cur_ok, F.pad(chars, (0, 1)), 0)
-        prevc = torch.where(prev_ok, F.pad(chars, (1, 0))[:, : L + 1], 0)
-        al_cur = torch.where(cur_ok, F.pad(alnum, (0, 1)), 0)
-        al_prev = torch.where(prev_ok, F.pad(alnum, (1, 0))[:, : L + 1], 0)
-        i32 = torch.int32
-        ctx = (
-            (pos == 0).to(i32) * CTX_BOS
-            | (prevc == 10).to(i32) * CTX_PREV_NL
-            | (curc == 0).to(i32) * CTX_EOS
-            | (curc == 10).to(i32) * CTX_CUR_NL
-            | (al_cur != al_prev).to(i32) * CTX_WB
-        )
-        uid = dp.on("ctx_map", dev)[ctx]
-        return membw, uid
+                membw ^= self.dp._class_hit(chars, c, ascii).to(torch.int32) * m
+        return membw, self.dp.position_uid(chars, lengths, ascii)
 
     def _matches_bits(self, chars, lengths, membw, uid, anchored: bool):
         if not chars.is_cuda:

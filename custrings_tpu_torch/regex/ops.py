@@ -1,25 +1,30 @@
 """Column-level regex ops: the boolean matchers and the span ops.
 
 Port of `custrings_tpu/regex/ops.py`: `get_program`, `_matches`,
-`contains_re`, `match_re` (on the bit matcher K2), and `count_re`,
-`findall_spans`, `findall_columns`, `findall_record` and `replace_re` with
-their helpers (on `DeviceProgram.all_spans` and the span passes K5).
-Patterns compile on the host once per process; each length class of the
-column runs at its own width, and ASCII-dominant columns run the
-packed-bit predicates on every row and re-run only their non-ASCII rows
-with the 64K tables.
+`contains_re`, `match_re` (on every program and row width), and
+`count_re`, `findall_spans`, `findall_columns`, `findall_record` and
+`replace_re` with their helpers (on `DeviceProgram.all_spans` and the
+span passes K5).  Patterns compile on the host once per process; each
+length class of the column runs at its own width, and ASCII-dominant
+columns run the packed-bit predicates on every row and re-run only their
+non-ASCII rows with the 64K tables.
 
-Not ported yet: programs over 32 instructions for the boolean matcher
-(K2b, ROADMAP queue 2) and rows of 2048 chars or more there
-(`nfa_matches_chunked`); span programs that are not certified
-(`longest_safe` or `end_unique`) or over 32 instructions (the min-plus,
-ordered and DFS span engines, ROADMAP queue 1, item 10); `extract`,
-`replace_multi_re` and `replace_with_backrefs`.  All of these raise
-NotImplementedError.
+The boolean matchers route each length class as the JAX package does:
+a width at or above the chunk threshold takes the chunked engine
+(`DeviceProgram.nfa_matches_chunked`); otherwise a program of at most 32
+instructions takes K2 (`nfa_bits`), one within K2b's instruction cap and
+table budget takes K2b (`nfa_words`), and any other the vector engine
+(`DeviceProgram.nfa_matches`).
+
+Not ported yet: span programs that are not certified (`longest_safe` or
+`end_unique`) or over 32 instructions (the min-plus, ordered and DFS span
+engines, ROADMAP queue 1, item 10); `extract`, `replace_multi_re` and
+`replace_with_backrefs`.  These raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -29,13 +34,9 @@ from ..column import StringColumn, build_column, empty_column, row_ids_from_offs
 from ..config import bucket_bytes
 from ..ops import layout, substr
 from ..ops.split import TokenColumn, _mask_column
+from . import nfa_bits, nfa_words
 from .compiler import compile_pattern
 from .device import DeviceProgram
-from .nfa_bits import MAX_BITS_INSTS, NFABits, pallas_supported
-
-#: rows of at least this many chars take the chunked matcher in the JAX
-#: package (`_chunk_threshold`), which is not ported yet
-CHUNK_THRESHOLD = 2048
 
 
 @lru_cache(maxsize=256)
@@ -44,30 +45,46 @@ def get_program(pattern: str) -> DeviceProgram:
 
 
 @lru_cache(maxsize=256)
-def _get_nfa(pattern: str) -> NFABits:
+def _get_nfa(pattern: str):
+    """The pattern's bit matcher: K2 (NFABits) for at most 32
+    instructions, else K2b (NFAWords) where it takes the program, else
+    None (the vector engine's programs)."""
     dp = get_program(pattern)
-    if not pallas_supported(dp):
-        raise NotImplementedError(
-            f"pattern {pattern!r} compiles to {dp.I} instructions; the bit "
-            f"matcher (K2) takes at most {MAX_BITS_INSTS}, and the dense "
-            "matcher K2b (pallas_nfa._matches_f32) is not ported yet "
-            "(ROADMAP queue 2)"
-        )
-    return NFABits(dp)
+    if nfa_bits.pallas_supported(dp):
+        return nfa_bits.NFABits(dp)
+    if nfa_words.pallas_supported(dp):
+        return nfa_words.NFAWords(dp)
+    return None
+
+
+def _chunk_size(width: int) -> int:
+    """Chunk G ~ sqrt(width) rounded to a power of two (depth G + log C)."""
+    g = 64
+    while g * g < width:
+        g *= 2
+    return g
+
+
+def _chunk_threshold() -> int:
+    """Rows of at least this many chars take the chunked engine; the JAX
+    package's CUSTRINGS_CHUNK_THRESHOLD moves it (the tests lower it on
+    both sides)."""
+    return int(os.environ.get("CUSTRINGS_CHUNK_THRESHOLD", "2048"))
 
 
 def _matches(col: StringColumn, pattern: str, anchored: bool) -> torch.Tensor:
     """bool[rows]; null rows are False."""
+    dp = get_program(pattern)
     nfa = _get_nfa(pattern)
+    thresh = _chunk_threshold()
 
     def engine(chars, nch, ascii=False):
-        if chars.shape[1] >= CHUNK_THRESHOLD:
-            raise NotImplementedError(
-                f"rows of {chars.shape[1]} chars need the chunked matcher "
-                "(DeviceProgram.nfa_matches_chunked), not ported yet; "
-                "K2b and the chunked route are ROADMAP queue 2"
-            )
-        return nfa.matches(chars, nch, anchored, ascii)
+        width = int(chars.shape[1])
+        if width >= thresh:
+            return dp.nfa_matches_chunked(chars, nch, anchored, _chunk_size(width), ascii)
+        if nfa is not None:
+            return nfa.matches(chars, nch, anchored, ascii)
+        return dp.nfa_matches(chars, nch, anchored, ascii)
 
     if col.size == 0:
         return torch.zeros(0, dtype=torch.bool, device=col.device)

@@ -4,13 +4,17 @@
 
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
 "THE"), dictionary_encode, the growing and shrinking replace_literal
-("THEE", "T"), split_record(" ")) and each span op (count_re("the|that"),
-findall_record(#\\w+), replace_re((\\w+)@(\\w+))) on a fresh 1M-row
-column of chip_smoke.make_corpus(): the wall time without the profiler,
-and under torch.profiler the wall time, the summed device time and the
-twelve device items that took longest.  Then the parts of contains_re timed
-alone with CUDA events: the char matrix (streaming view and K1 window
-routes), the per-position tables and the K2 wrapper.  Last, the three
+("THEE", "T"), split_record(" ")), each span op (count_re("the|that"),
+findall_record(#\\w+), replace_re((\\w+)@(\\w+))) and hash on a fresh
+1M-row column of chip_smoke.make_corpus(), and for each matcher of the
+matchers phase (contains_re of ERR, ISO and MONTH on the 2^20 log rows of
+chip_smoke.make_logs(), of BIG on their first 65,536, of ERR on the 2,048
+long rows): the wall time without the profiler, and under torch.profiler
+the wall time, the summed device time and the twelve device items that
+took longest.  Then the parts of contains_re(#\\w+) and contains_re(ERR)
+timed alone with CUDA events: the char matrix (for #\\w+ on the streaming
+view and K1 window routes), the per-position tables and the K2 / K2b
+wrapper; and K2b's planes and kernel by program on the log rows.  Last, the three
 ops in sequence on a fresh column on each padded-view route (the
 streaming view the slice takes at 1M rows, and the K1 window view),
 alternated stream, window, window, stream.  One JSON line each.
@@ -42,33 +46,42 @@ def main() -> int:
         print("profile_slice: needs a CUDA card", file=sys.stderr)
         return 1
     from custrings_tpu_torch import column
-    from custrings_tpu_torch.ops import layout, modify, split, unique
+    from custrings_tpu_torch.ops import hash, layout, modify, split, unique
     from custrings_tpu_torch.regex import ops as rx
 
     strs = cs.make_corpus(cs.ROWS, seed=0)
+    logs = cs.make_logs(cs.LOG_ROWS, seed=2)
+    corpora = {"tweets": strs, "logs": logs, "logs_big": logs[: cs.BIG_ROWS],
+               "long": cs.make_long_logs(cs.LONG_ROWS, seed=3)}
 
-    def fresh():
-        return column.from_host_strings(strs, "cuda")
+    def fresh(src="tweets"):
+        return column.from_host_strings(corpora[src], "cuda")
 
     ops = {
-        "contains_re": lambda c: rx.contains_re(c, cs.PATTERN),
-        "replace_literal": lambda c: modify.replace_literal(c, "the", "THE"),
-        "dictionary_encode": lambda c: unique.dictionary_encode(c),
-        "replace_grow": lambda c: modify.replace_literal(c, "the", "THEE"),
-        "replace_shrink": lambda c: modify.replace_literal(c, "the", "T"),
-        "split_record": lambda c: split.split_record(c, " "),
-        "count_re": lambda c: rx.count_re(c, cs.SPAN_COUNT),
-        "findall_record": lambda c: rx.findall_record(c, cs.SPAN_FIND),
-        "replace_re": lambda c: rx.replace_re(c, cs.SPAN_REPLACE, "EMAIL"),
+        "contains_re": ("tweets", lambda c: rx.contains_re(c, cs.PATTERN)),
+        "replace_literal": ("tweets", lambda c: modify.replace_literal(c, "the", "THE")),
+        "dictionary_encode": ("tweets", lambda c: unique.dictionary_encode(c)),
+        "replace_grow": ("tweets", lambda c: modify.replace_literal(c, "the", "THEE")),
+        "replace_shrink": ("tweets", lambda c: modify.replace_literal(c, "the", "T")),
+        "split_record": ("tweets", lambda c: split.split_record(c, " ")),
+        "count_re": ("tweets", lambda c: rx.count_re(c, cs.SPAN_COUNT)),
+        "findall_record": ("tweets", lambda c: rx.findall_record(c, cs.SPAN_FIND)),
+        "replace_re": ("tweets", lambda c: rx.replace_re(c, cs.SPAN_REPLACE, "EMAIL")),
+        "hash": ("tweets", lambda c: hash.hash_mm3(c)),
+        "contains_re ERR (K2b)": ("logs", lambda c: rx.contains_re(c, cs.ERR)),
+        "contains_re ISO (K2b)": ("logs", lambda c: rx.contains_re(c, cs.ISO)),
+        "contains_re MONTH (K2b)": ("logs", lambda c: rx.contains_re(c, cs.MONTH)),
+        "contains_re BIG (vector)": ("logs_big", lambda c: rx.contains_re(c, cs.BIG)),
+        "contains_re ERR (chunked)": ("long", lambda c: rx.contains_re(c, cs.ERR)),
     }
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):
         torch.ones(1, device="cuda").sum()
-    for name, fn in ops.items():
-        fn(fresh())  # warm-up: regex compile, tables, allocator
-        c = fresh()
+    for name, (src, fn) in ops.items():
+        fn(fresh(src))  # warm-up: regex compile, tables, allocator
+        c = fresh(src)
         _, cold = _timed(torch, lambda: fn(c))
-        c = fresh()
+        c = fresh(src)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=acts) as prof:
@@ -101,6 +114,34 @@ def main() -> int:
             torch, lambda: nfa._matches_bits(chars, nch, membw, uid, False)),
     }), flush=True)
     del col, chars, nch, membw, uid
+    col = fresh("logs")
+    lw = layout.max_row_bytes(col)
+    na = torch.from_numpy(layout.row_nonascii_ids(col)).cuda()
+    chars, nch = layout.char_matrix(col, lw)
+    nfa = rx._get_nfa(cs.ERR)
+    membw, uid = nfa._pos_tables(chars, nch, True)
+    print(json.dumps({
+        "part": "contains_re ERR (K2b)",
+        "char_matrix_ms": cs._time_ms(torch, lambda: layout._char_matrix_hybrid(
+            col, None, na, lw, layout._use_stream_view(col, lw))),
+        "pos_tables_ms": cs._time_ms(torch, lambda: nfa._pos_tables(chars, nch, True)),
+        "nfa_wrapper_ms": cs._time_ms(
+            torch, lambda: nfa._matches_words(chars, nch, membw, uid, False)),
+    }), flush=True)
+    # K2b by program on the same rows: the log filters, and ERR without
+    # its word boundaries (one closure variant, no uid plane)
+    for pat in (cs.ERR, cs.ERR.replace(r"\b", ""), cs.ISO, cs.MONTH):
+        nfa = rx._get_nfa(pat)
+        membw, uid = nfa._pos_tables(chars, nch, True)
+        print(json.dumps({
+            "part": "K2b by program", "pattern": pat, "insts": nfa.I, "W32": nfa.W32, "U": nfa.U,
+            "pos_tables_ms": cs._time_ms(torch, lambda: nfa._pos_tables(chars, nch, True)),
+            "unanchored_ms": cs._time_ms(
+                torch, lambda: nfa._matches_words(chars, nch, membw, uid, False)),
+            "anchored_ms": cs._time_ms(
+                torch, lambda: nfa._matches_words(chars, nch, membw, uid, True)),
+        }), flush=True)
+    del col, chars, nch, membw, uid
 
     # the slice's ops in sequence on each padded-view route (the streaming
     # view, as the slice takes it at 1M rows, and the K1 window view),
@@ -110,9 +151,9 @@ def main() -> int:
         layout.STREAM_VIEW_MIN = default_min if route == "stream" else 1 << 62
         c = fresh()
         ms = {}
-        _, ms["contains_re"] = _timed(torch, lambda: ops["contains_re"](c))
-        r, ms["replace_literal"] = _timed(torch, lambda: ops["replace_literal"](c))
-        _, ms["dictionary_encode"] = _timed(torch, lambda: ops["dictionary_encode"](r))
+        _, ms["contains_re"] = _timed(torch, lambda: ops["contains_re"][1](c))
+        r, ms["replace_literal"] = _timed(torch, lambda: ops["replace_literal"][1](c))
+        _, ms["dictionary_encode"] = _timed(torch, lambda: ops["dictionary_encode"][1](r))
         print(json.dumps({"route": route, "ms": ms, "sum_ms": sum(ms.values())}), flush=True)
     layout.STREAM_VIEW_MIN = default_min
     print(cs._nvidia_smi(), flush=True)

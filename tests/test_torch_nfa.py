@@ -130,7 +130,10 @@ def test_contains_and_match_parity(name, pattern):
     )
 
 
-def test_long_program_raises_not_implemented():
-    t, _ = _pair(["abc"])
-    with pytest.raises(NotImplementedError, match="K2b"):
-        trx.contains_re(t, "a" * 40)
+def test_long_program_parity():
+    """A 41-instruction program (K2b's route since the dense matcher came)
+    equals the JAX package."""
+    strs = ["abc", "a" * 40, "b" + "a" * 41, None, "", "a" * 39]
+    t, j = _pair(strs)
+    np.testing.assert_array_equal(trx.contains_re(t, "a" * 40).numpy(), np.asarray(jrx.contains_re(j, "a" * 40)))
+    assert trx.contains_re(t, "a" * 40).tolist() == [False, True, True, False, False, False]
