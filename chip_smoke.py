@@ -32,7 +32,8 @@ Phases, each printing one JSON line:
   5. matchers — contains and match through the facade: ERR, ISO, MONTH on
                the 2^20 log rows (K2b), BIG on their first 65,536 (the
                vector engine), ERR, ISO, MONTH on the 2,048 long rows (the
-               chunked engine), every row against Python `re`
+               chunked engine), every row against Python `re`, and every
+               call held to the engine its set is there to drive
   6. hash    — nvstrings.hash on the tweet rows against a numpy
                MurmurHash3_32 (seed 31), itself held to the reference vector
   7. launches — each path's kernel counters (reset just before the path,
@@ -627,7 +628,9 @@ def _kernel_phase_rest(torch, col, logs_col, err_starts):
            lambda k8=k8, k0=k0, oc=oc: compact._compact_launch(col.data, k8, k0, oc),
            lambda keep=keep, oc=oc: compact._compact_plain(col.data, keep, oc))
           for label, keep, k8, k0, oc in masks],
-         (cap * (1 + 1 + 4) + masks[0][4], 0),
+         # compact_bytes(data, keep, out_cap): data and keep read once,
+         # out_cap bytes written (k0 is the kernel's own intermediate)
+         (2 * cap + masks[0][4], 0),
          lambda: torch.masked_select(col.data, masks[0][1])),
     ]
     return _measure(torch, cases, one_plain=("nfa_words",))
@@ -669,14 +672,14 @@ def _category_oracle(strs):
 
 
 def _stepper(torch, times, peaks=None):
-    """step(name, fn): fn's result, its host-clock seconds in times[name]
+    """step(name, fn, *args): fn(*args), its host-clock seconds in times[name]
     and, with `peaks`, its peak device memory in peaks[name]."""
-    def step(name, fn):
+    def step(name, fn, *args):
         torch.cuda.synchronize()
         if peaks is not None:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = fn()
+        out = fn(*args)
         torch.cuda.synchronize()
         times[name] = time.perf_counter() - t0
         if peaks is not None:
@@ -813,9 +816,47 @@ def _check_spans(strs, results):
 def _matcher_sets(logs, long_rows):
     """(set, rows, [(filter, pattern)]) of the matchers phase: the log rows
     on K2b, their first BIG_ROWS on the vector engine, the long rows on the
-    chunked engine."""
+    chunked engine (MATCHER_ROUTES)."""
     k2b = [("ERR", ERR), ("ISO", ISO), ("MONTH", MONTH)]
     return [("logs", logs, k2b), ("logs_big", logs[:BIG_ROWS], [("BIG", BIG)]), ("long", long_rows, k2b)]
+
+
+#: the engines every call of each matcher set must take, and no other
+MATCHER_ROUTES = {"logs": ["K2b"], "logs_big": ["vector"], "long": ["chunked"]}
+#: (module, class, method, engine) of the boolean matcher's four engines
+_ENGINES = (("nfa_bits", "NFABits", "matches", "K2"), ("nfa_words", "NFAWords", "matches", "K2b"),
+            ("device", "DeviceProgram", "nfa_matches", "vector"),
+            ("device", "DeviceProgram", "nfa_matches_chunked", "chunked"))
+
+
+class _RouteLog:
+    """Records which of the boolean matcher's engines run while active, by
+    wrapping their entry points; `engines` lists them, sorted."""
+
+    def __enter__(self):
+        from custrings_tpu_torch.regex import device, nfa_bits, nfa_words
+
+        mods = {"device": device, "nfa_bits": nfa_bits, "nfa_words": nfa_words}
+        self._seen, self._saved = set(), []
+        for mod, cls_name, meth, engine in _ENGINES:
+            cls = getattr(mods[mod], cls_name)
+            fn = getattr(cls, meth)
+            self._saved.append((cls, meth, fn))
+
+            def logged(obj, *a, _fn=fn, _engine=engine, **k):
+                self._seen.add(_engine)
+                return _fn(obj, *a, **k)
+
+            setattr(cls, meth, logged)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, meth, fn in self._saved:
+            setattr(cls, meth, fn)
+
+    @property
+    def engines(self):
+        return sorted(self._seen)
 
 
 def _matcher_oracle(sets):
@@ -832,18 +873,21 @@ def _matcher_oracle(sets):
 
 def _run_matchers(torch, sets):
     """contains and match of every filter of every set through the facade;
-    returns (results, per-op seconds, per-op peak device memory)."""
+    returns (results, per-op seconds, per-op peak device memory, per-op
+    engines)."""
     from custrings_tpu_torch import nvstrings
 
-    times, peaks, out = {}, {}, {}
+    times, peaks, out, routes = {}, {}, {}, {}
     step = _stepper(torch, times, peaks)
     for set_name, strs, filters in sets:
         s = step(f"{set_name} to_device", lambda: nvstrings.to_device(strs, device="cuda"))
         for fname, pat in filters:
-            out[set_name, fname, "contains"] = step(f"{set_name} contains {fname}", lambda: s.contains(pat))
-            out[set_name, fname, "match"] = step(f"{set_name} match {fname}", lambda: s.match(pat))
+            for op in ("contains", "match"):
+                with _RouteLog() as log:
+                    out[set_name, fname, op] = step(f"{set_name} {op} {fname}", getattr(s, op), pat)
+                routes[set_name, fname, op] = log.engines
         del s
-    return out, times, peaks
+    return out, times, peaks, routes
 
 
 def _run_hash(torch, strs):
@@ -971,14 +1015,18 @@ def main() -> int:
     # the matchers: first-use set-up (pattern compiles, tables) on a few
     # rows of each set, then the whole sets once
     _run_matchers(torch, [(n, rows[:64], f) for n, rows, f in sets])
-    (mresults, mtimes, mpeaks), matcher_launches = _driven(torch, kernels, _run_matchers, sets)
+    (mresults, mtimes, mpeaks, mroutes), matcher_launches = _driven(torch, kernels, _run_matchers, sets)
     mbad = {" ".join(k): _mismatches(mresults[k], want[k]) for k in want}
+    off_route = {" ".join(k): v for k, v in mroutes.items() if v != MATCHER_ROUTES[k[0]]}
     _emit({"phase": "matchers", "rows": {n: len(rows) for n, rows, _ in sets},
            "ms": {k: v * 1e3 for k, v in mtimes.items()}, "max_memory_allocated": mpeaks,
+           "engines": {" ".join(k): v for k, v in mroutes.items()},
            "true_rows": {" ".join(k): sum(bool(b) for b in v) for k, v in mresults.items()},
            "mismatches": mbad})
     if any(mbad.values()):
         raise AssertionError(f"matchers disagree with Python re: {mbad}")
+    if off_route:
+        raise AssertionError(f"matchers took other engines than {MATCHER_ROUTES}: {off_route}")
     del mresults, want
     torch.cuda.empty_cache()
 

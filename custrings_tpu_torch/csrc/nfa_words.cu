@@ -22,13 +22,12 @@
 //
 // The program table is one int32 array built by regex/nfa_words.py:
 //   [U, I, W, crows[U*I*W], nrows[I*W], start[W], end[W], inst[I]],
-// inst[i] = kind << 24 | arg (kinds as K_* below).  It goes to shared
-// memory when it fits the block's 227 KB: a program K2b takes (at most
-// 256 instructions within the TPU's table budget, so U*I*W*4 <= 196,608
-// bytes for the closure rows, ~206 KB in all) always fits, dynamic shared
-// memory above 48 KB with the opt-in.  A larger table would be read from
-// device memory through the read-only cache (in_smem = 0); no program the
-// wrapper accepts takes that case.
+// inst[i] = kind << 24 | arg (kinds as K_* below).  Each block stages it
+// in shared memory: a program K2b takes (at most 256 instructions within
+// the TPU's table budget, so U*I*W*4 <= 196,608 bytes for the closure
+// rows, ~206 KB in all) fits the block's 227 KB, dynamic shared memory
+// above 48 KB with the opt-in.  A larger table is refused
+// (cudaErrorInvalidValue).
 //
 // Bound on the H100: device-memory bytes and load latency.  Per row and
 // position the kernel reads 4 bytes of chars, 4*W of the membership planes
@@ -54,15 +53,11 @@ template <int W>
 __global__ void __launch_bounds__(THREADS)
 nfa_words(const int32_t* __restrict__ chars, const uint32_t* __restrict__ membw,
           const int32_t* __restrict__ uid, const int32_t* __restrict__ lengths,
-          const uint32_t* __restrict__ prog, int prog_len, int in_smem,
+          const uint32_t* __restrict__ prog, int prog_len,
           int64_t N, int64_t L, int anchored, uint8_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const uint32_t* tab = prog;
-  if (in_smem) {
-    for (int i = threadIdx.x; i < prog_len; i += THREADS) smem[i] = prog[i];
-    __syncthreads();
-    tab = smem;
-  }
+  extern __shared__ uint32_t tab[];
+  for (int i = threadIdx.x; i < prog_len; i += THREADS) tab[i] = prog[i];
+  __syncthreads();
   const int64_t row = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (row >= N) return;
 
@@ -162,9 +157,8 @@ template <int W>
 int launch(const void* chars, const void* membw, const void* uid,
            const void* lengths, const void* prog, int prog_len, int64_t N,
            int64_t L, int anchored, void* out, cudaStream_t stream) {
-  const size_t bytes = (size_t)prog_len * sizeof(uint32_t);
-  const int in_smem = bytes <= (size_t)SMEM_OPT_IN ? 1 : 0;
-  const size_t smem = in_smem ? bytes : 0;
+  const size_t smem = (size_t)prog_len * sizeof(uint32_t);
+  if (smem > (size_t)SMEM_OPT_IN) return (int)cudaErrorInvalidValue;
   if (smem > (size_t)SMEM_DEFAULT) {
     cudaError_t e = cudaFuncSetAttribute(
         nfa_words<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -173,7 +167,7 @@ int launch(const void* chars, const void* membw, const void* uid,
   const unsigned grid = (unsigned)((N + THREADS - 1) / THREADS);
   nfa_words<W><<<grid, THREADS, smem, stream>>>(
       (const int32_t*)chars, (const uint32_t*)membw, (const int32_t*)uid,
-      (const int32_t*)lengths, (const uint32_t*)prog, prog_len, in_smem, N, L,
+      (const int32_t*)lengths, (const uint32_t*)prog, prog_len, N, L,
       anchored, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

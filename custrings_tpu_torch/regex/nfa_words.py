@@ -85,25 +85,34 @@ class NFAWords:
                 M[int(prog.args[i]), i] = True
                 B[i] = prog.types[i] == NCCLASS
         self.memb_M = [[i32_bits(v) for v in row] for row in _words(M, W)]
-        self.memb_B = [i32_bits(v) for v in _words(B, W)]
-        self.crows = _words(cu, W)  # [U][I][W]
-        self.nrows = _words(dp.next_mat.numpy(), W)  # [I][W]
-        self.start_w = _words(dp.start_vec.numpy(), W)
-        self.end_w = _words(dp.is_end.numpy(), W)
+        crows = _words(cu, W)  # [U][I][W]
+        nrows = _words(dp.next_mat.numpy(), W)  # [I][W]
+        start_w = _words(dp.start_vec.numpy(), W)
+        end_w = _words(dp.is_end.numpy(), W)
         self.inst = [
             (_KIND.get(int(prog.types[i]), K_OTHER) << 24) | (int(prog.args[i]) & 0xFFFFFF)
             for i in range(I)
         ]
         table = [self.U, I, W]
-        table += [v for u in self.crows for row in u for v in row]
-        table += [v for row in self.nrows for v in row]
-        table += self.start_w + self.end_w + self.inst
+        table += [v for u in crows for row in u for v in row]
+        table += [v for row in nrows for v in row]
+        table += start_w + end_w + self.inst
+        # host tables, copied to a device once by on(): the kernel's table,
+        # the membership planes' base word, and the plain walk's rows as
+        # int64 words of 32 bits
         self.table = torch.tensor([i32_bits(v) for v in table], dtype=torch.int32)
+        self.memb_B = torch.tensor([i32_bits(v) for v in _words(B, W)], dtype=torch.int32)
+        self.crows = torch.tensor(crows, dtype=torch.int64)
+        self.nrows = torch.tensor(nrows, dtype=torch.int64)
+        self.start_w = torch.tensor(start_w, dtype=torch.int64)
+        self.end_w = torch.tensor(end_w, dtype=torch.int64)
         self._on = {}
 
-    def _cached(self, key, make):
+    def on(self, name: str, device) -> torch.Tensor:
+        """Cached copy of table `name` on `device`."""
+        key = (name, str(device))
         if key not in self._on:
-            self._on[key] = make()
+            self._on[key] = getattr(self, name).to(device)
         return self._on[key]
 
     def matches(self, chars, lengths, anchored: bool, ascii: bool = False):
@@ -121,8 +130,8 @@ class NFAWords:
         """(membw int32[N, L, W32], uid int32[N, L+1] or None): the class
         bit planes of each char and the closure variant of each position."""
         chars = chars.to(torch.int32)
-        B = torch.tensor(self.memb_B, dtype=torch.int32, device=chars.device)
-        membw = B.expand(*chars.shape, self.W32).contiguous()
+        base = self.on("memb_B", chars.device).expand(*chars.shape, self.W32)
+        membw = base.clone(memory_format=torch.contiguous_format)  # a copy: XORed in place
         for c, Mc in enumerate(self.memb_M):
             if not any(Mc):
                 continue
@@ -145,7 +154,7 @@ class NFAWords:
         lens = lengths.to(torch.int32).contiguous()
         if membw.shape != (N, L, W) or lens.shape != (N,):
             raise ValueError("nfa_words: membw or lengths do not fit the char matrix")
-        table = self._cached(("table", str(chars.device)), lambda: self.table.to(chars.device))
+        table = self.on("table", chars.device)
         planes = [chars, membw, lens, table]
         if self.U > 1:  # the kernel reads uid only with several variants
             uid = uid.to(torch.int32).contiguous()
@@ -171,10 +180,8 @@ class NFAWords:
         dev = chars.device
         W = self.W32
         lens = lengths.to(torch.int64)
-        crows = self._cached(("crows", str(dev)), lambda: torch.tensor(self.crows, dtype=torch.int64, device=dev))
-        nrows = torch.tensor(self.nrows, dtype=torch.int64, device=dev)
-        start = torch.tensor(self.start_w, dtype=torch.int64, device=dev)
-        end = torch.tensor(self.end_w, dtype=torch.int64, device=dev)
+        crows, nrows = self.on("crows", dev), self.on("nrows", dev)
+        start, end = self.on("start_w", dev), self.on("end_w", dev)
         shifts = torch.arange(32, dtype=torch.int64, device=dev)
         state = torch.zeros((N, W), dtype=torch.int64, device=dev)
         matched = torch.zeros(N, dtype=torch.bool, device=dev)

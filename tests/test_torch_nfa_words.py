@@ -178,3 +178,25 @@ def test_facade_contains_and_match(pattern):
     assert got.contains(pattern) == want.contains(pattern)
     assert got.match(pattern) == want.match(pattern)
     assert got.contains(pattern) == [None if s is None else re.search(pattern, s) is not None for s in strs]
+
+
+@pytest.fixture(scope="module")
+def smoke_sets():
+    """chip_smoke's matcher sets at a small size: its log and long-row
+    generators, its filters and its split of the sets."""
+    return CS._matcher_sets(CS.make_logs(64, seed=2), CS.make_long_logs(3, seed=3))
+
+
+@pytest.mark.parametrize("set_name", ["logs", "logs_big", "long"])
+def test_chip_smoke_matcher_routes(smoke_sets, set_name):
+    """Each matcher set of chip_smoke.py takes the engine it is there to
+    drive (MATCHER_ROUTES, as _RouteLog records it) and agrees with Python
+    `re` on every row."""
+    [(_, strs, filters)] = [s for s in smoke_sets if s[0] == set_name]
+    t = tcol.from_host_strings(strs, "cpu")
+    for _, pattern in filters:
+        for anchored, fn in ((False, trx.contains_re), (True, trx.match_re)):
+            with CS._RouteLog() as log:
+                got = fn(t, pattern)
+            assert log.engines == CS.MATCHER_ROUTES[set_name]
+            assert got.tolist() == _oracle(pattern, strs, anchored)
