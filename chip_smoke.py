@@ -10,7 +10,7 @@ Phases, each printing one JSON line:
                times, the kernel's bound (the larger of its bytes over
                the card's 3.35 TB/s and its ops over 67 T op/s) and,
                where one PyTorch call computes the same function, that
-               call's time
+               call's time; span_all's two backward walks side by side
      views   — the two padded-view routes at the slice's widths: the
                streaming view (K4c/K4e, the route the slice takes at 1M
                rows) against the K1 window gather, compared exactly, timed
@@ -21,7 +21,8 @@ Phases, each printing one JSON line:
                checked against Python oracles
   4. spans   — count("the|that"), findall_record(r"#\w+") and
                replace(r"(\w+)@(\w+)", "EMAIL") on the same rows, checked
-               against Python `re`, with the round count of each all_spans
+               against Python `re`; each all_spans call must launch
+               span_all exactly once
      logs    — make_logs(2^20) and make_long_logs(2,048) rows, and the
                Python `re` oracles of the matchers phase
      kernels — K2b (nfa_words) on the log rows for ERR, ISO and MONTH,
@@ -399,21 +400,42 @@ def _bound(nbytes: float, nops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def _span_inputs(torch, chars, nch):
-    """Per span pattern: its span passes, K2's planes over the char matrix
-    (the 64K tables: right for every row), and the start positions 0 and a
-    seeded random one in [0, length]."""
+#: the span patterns of the span_all kernel case, the headline one first
+SPAN_KERNEL_PATTERNS = (SPAN_COUNT, SPAN_FIND, SPAN_REPLACE, r"\bthe\b")
+
+
+def _span_shapes(torch, chars, nch, valid):
+    """span_all's shapes: each pattern of SPAN_KERNEL_PATTERNS over the
+    whole char matrix as count_re calls it (counts only, Rcap = L + 2) and
+    as the findall and replace ops do (full planes, Rcap = the rows' most
+    matches); [(label, sb, Rcap, counts_only)]."""
     from custrings_tpu_torch.regex import ops as rx
 
-    g = torch.Generator(device="cpu").manual_seed(1)
-    rand = (torch.rand(nch.shape[0], generator=g) * (nch.cpu() + 1).float()).floor().to(torch.int32).cuda()
-    zero = torch.zeros_like(nch)
+    L = chars.shape[1]
     out = []
-    for pat in (SPAN_FIND, SPAN_COUNT, SPAN_REPLACE, r"\bthe\b"):
+    for pat in SPAN_KERNEL_PATTERNS:
         sb = rx._span_program(pat)._span_bits()
-        membw, uid = sb.tables(chars, nch)
-        out.append((pat, sb, membw, uid, [("start 0", zero), ("random start", rand)]))
+        counts = sb._all_plain(chars, nch, valid, L + 2, torch.zeros_like(nch), True)[0]
+        most = max(int(counts.max()), 1)
+        u = " U>1" if sb.nfa.U > 1 else ""
+        out.append((f"{pat} counts only [{chars.shape[0]},{L}]{u}", sb, L + 2, True))
+        out.append((f"{pat} full planes Rcap {most} [{chars.shape[0]},{L}]{u}", sb, most, False))
     return out
+
+
+def _span_all_bound(torch, nch, valid, L, W, B, E):
+    """(bytes, ops) of all_spans(chars, lengths, validity): the chars of
+    [0, min(len, L)) of each valid row read once, lengths and validity
+    read, counts and the two [N, W] planes written; per position of the
+    backward walk (min(len, L) + 1 a valid row) and of the forward walks
+    (b..e of each match in B, E) at least 10 ops: the char's address and
+    test, its predicate and closure lookups and their ORs, the begin bit
+    (the set-bit walks add ~4 ops per state bit, which the data decides)."""
+    n = nch.shape[0]
+    row = torch.minimum(nch, torch.full_like(nch, L)).to(torch.int64)
+    back = int((row + 1)[valid].sum())
+    fwd = int(torch.where(B >= 0, E.to(torch.int64) - B + 1, 0).sum())
+    return 4 * int(row[valid].sum()) + n * (4 + 1 + 4) + 8 * n * W, (back + fwd) * 10
 
 
 def _walk(torch, nfa, per_row: int, first, end):
@@ -452,33 +474,24 @@ def _kernel_phase(torch, col, width):
     k0_first = cumsum0(first)
     out_cap = col.size * width
     n, cap = col.size, col.capacity
-    spans = _span_inputs(torch, chars, nch)
-    # each span pattern's first-match begins and ends from position 0 (the
-    # plain passes'), for the forward pass's input and the walks' bounds
-    b0s, e0s = {}, {}
-    for pat, sb, mw, ud, starts_ in spans:
-        for label, sp in starts_:
-            b0s[pat, label] = sb._back_plain(chars, nch, sp, mw, ud)
-            e0s[pat, label] = sb._fwd_plain(chars, nch, b0s[pat, label], mw, ud)
-    # the chars a walk must read: K2 reads each row up to its first match,
-    # so at least up to the leftmost match begin, and the whole row where
-    # nothing matches; the backward span pass reads [start, length), the
-    # forward one [begin, end) of the match
     zero = torch.zeros_like(nch)
+    valid = col.validity
+    spans = _span_shapes(torch, chars, nch, valid)
+    span_cases = [(label, lambda sb=sb, R=R, co=co: sb.all(chars, nch, valid, R, counts_only=co),
+                   lambda sb=sb, R=R, co=co: sb._all_plain(chars, nch, valid, R, zero, co))
+                  for label, sb, R, co in spans]
+    # the headline shape's bound counts the matches of its full-plane twin
+    sb_h, R_h = spans[1][1], spans[1][2]
+    _, B_h, E_h = sb_h._all_plain(chars, nch, valid, R_h, zero, False)
+    span_bound = _span_all_bound(torch, nch, valid, L, 1, B_h, E_h)
+    del B_h, E_h
+    # the chars K2 must read: each row up to its first match, so at least
+    # up to the leftmost match begin, and the whole row where nothing
+    # matches
     row_end = torch.minimum(nch, torch.full_like(nch, L))
     k2_hits = nfa._matches_plain(chars, nch, membw, uid, False)
-    k2_end = torch.where(k2_hits, b0s[PATTERN, "start 0"] + 1, row_end)
-    sb0 = spans[0][1]
-    back_shapes, fwd_shapes = [], []
-    for pat, sb, mw, ud, starts_ in spans:
-        for label, sp in starts_:
-            b0 = b0s[pat, label]
-            tag = f"{pat} {label} [{N},{L}]" + (" U>1" if sb.nfa.U > 1 else "")
-            back_shapes.append((tag, lambda sb=sb, sp=sp, mw=mw, ud=ud: sb.back(chars, nch, sp, mw, ud),
-                                lambda sb=sb, sp=sp, mw=mw, ud=ud: sb._back_plain(chars, nch, sp, mw, ud)))
-            fwd_shapes.append((tag, lambda sb=sb, b0=b0, mw=mw, ud=ud: sb.fwd(chars, nch, b0, mw, ud),
-                               lambda sb=sb, b0=b0, mw=mw, ud=ud: sb._fwd_plain(chars, nch, b0, mw, ud)))
-    b00, e00 = b0s[SPAN_FIND, "start 0"], e0s[SPAN_FIND, "start 0"]
+    first_b = spans[2][1]._all_plain(chars, nch, torch.ones_like(valid), 1, zero, False)[1][:, 0]
+    k2_end = torch.where(k2_hits, first_b + 1, row_end)
     cases = [
         ("scan_sum", "csrc/scan.cu", "custrings_tpu/ops/pallas_scan.py:235",
          [(f"u8[{cap}]", lambda: scan.cumsum_i32(col.data), lambda: scan._cumsum_plain(col.data)),
@@ -518,12 +531,38 @@ def _kernel_phase(torch, col, width):
            lambda: nfa._matches_bits(chars, nch, membw, uid, True),
            lambda: nfa._matches_plain(chars, nch, membw, uid, True))],
          _walk(torch, nfa, 4 + 1, zero, k2_end), None),
-        ("span_back", "csrc/spans.cu", "custrings_tpu/regex/pallas_spans.py:251",
-         back_shapes, _walk(torch, sb0.nfa, 12, zero, row_end), None),
-        ("span_fwd", "csrc/spans.cu", "custrings_tpu/regex/pallas_spans.py:266",
-         fwd_shapes, _walk(torch, sb0.nfa, 12, b00, torch.where(b00 >= 0, e00, -1)), None),
+        ("span_all", "csrc/spans.cu",
+         "custrings_tpu/regex/pallas_spans.py:251 and :266 (SpanBits.single, looped by "
+         "custrings_tpu/regex/device.py:1171 all_spans)",
+         span_cases, span_bound, None),
     ]
-    return _measure(torch, cases, slow=("nfa_bits", "span_back", "span_fwd"))
+    recs = _measure(torch, cases, slow=("nfa_bits",), one_plain=("span_all",))
+    _span_forms(torch, span_cases)
+    return recs
+
+
+def _span_forms(torch, span_cases):
+    """span_all's two backward walks (span_bits.STAGED_BACK: 1 stages each
+    warp's chars through shared memory, 0 loads them in place) at each
+    shape, exactly equal, timed in turns 0, 1, 1, 0."""
+    from custrings_tpu_torch.regex import span_bits
+
+    default = span_bits.STAGED_BACK
+    rows = []
+    try:
+        for label, kern, _ in span_cases:
+            outs, ms = {}, {0: [], 1: []}
+            for form in (0, 1, 1, 0):
+                span_bits.STAGED_BACK = form
+                if form not in outs:
+                    outs[form] = kern()
+                ms[form].append(_time_ms(torch, kern))
+            _compare(torch, f"span_all forms {label}", outs[1], outs[0])
+            rows.append({"shape": label, "in_place_ms": ms[0], "staged_ms": ms[1]})
+    finally:
+        span_bits.STAGED_BACK = default
+    _emit({"phase": "span_all forms", "default": default, "tolerance": "exact (torch.equal)",
+           "shapes": rows})
 
 
 def _measure(torch, cases, slow=(), one_plain=()):
@@ -744,45 +783,41 @@ def _check_rewrites(strs, results):
     }
 
 
-class _RoundLog:
-    """Counts the rounds of each DeviceProgram.all_spans call (one span
-    pass pair per round) while active, by wrapping the two methods."""
+class _SpanLog:
+    """Records each DeviceProgram.all_spans call while active, by wrapping
+    it: its rows, width, counts_only, span_all launches, matches and rows
+    with a match."""
 
     def __init__(self):
         self.calls = []
 
     def __enter__(self):
-        from custrings_tpu_torch.regex import device, span_bits
+        from custrings_tpu_torch import kernels
+        from custrings_tpu_torch.regex import device
 
-        self._saved = (device.DeviceProgram.all_spans, span_bits.SpanBits.spans)
-        all_spans, spans = self._saved
-        passes = [0]
-
-        def counted_spans(sb, *a, **k):
-            passes[0] += 1
-            return spans(sb, *a, **k)
+        self._saved = all_spans = device.DeviceProgram.all_spans
 
         def logged_all_spans(dp, chars, *a, **k):
-            p0 = passes[0]
+            n0 = kernels.LAUNCHES["span_all"]
             out = all_spans(dp, chars, *a, **k)
             self.calls.append({"rows": int(chars.shape[0]), "width": int(chars.shape[1]),
                                "counts_only": bool(k.get("counts_only", False)),
-                               "rounds": passes[0] - p0})
+                               "launches": kernels.LAUNCHES["span_all"] - n0,
+                               "matches": int(out[0].sum()), "rows_matched": int((out[0] > 0).sum())})
             return out
 
         device.DeviceProgram.all_spans = logged_all_spans
-        span_bits.SpanBits.spans = counted_spans
         return self
 
     def __exit__(self, *exc):
-        from custrings_tpu_torch.regex import device, span_bits
+        from custrings_tpu_torch.regex import device
 
-        device.DeviceProgram.all_spans, span_bits.SpanBits.spans = self._saved
+        device.DeviceProgram.all_spans = self._saved
 
 
 def _run_spans(torch, strs):
     """The span ops through the facade; returns (results, per-op seconds,
-    {op: [all_spans calls]})."""
+    {op: [all_spans calls, as _SpanLog records them]})."""
     from custrings_tpu_torch import nvstrings
 
     times, rounds = {}, {}
@@ -793,7 +828,7 @@ def _run_spans(torch, strs):
            ("replace_re", lambda: s.replace(SPAN_REPLACE, "EMAIL", regex=True))]
     out = {}
     for name, fn in ops:
-        with _RoundLog() as log:
+        with _SpanLog() as log:
             out[name] = step(name, fn)
         rounds[name] = log.calls
     found = step("findall_to_host", lambda: _records_to_host(out["findall_record"]))
@@ -923,7 +958,7 @@ def _driven(torch, kernels, run, strs):
 #: the kernels each path must launch at 1M rows
 SLICE_KERNELS = ("scan_sum", "scan_max", "window_bytes", "window_words", "nfa_bits",
                  "route_compact", "route_expand")
-SPAN_KERNELS = ("span_back", "span_fwd")
+SPAN_KERNELS = ("span_all",)
 MATCHER_KERNELS = ("nfa_words",)
 HASH_KERNELS = ("hash",)
 COMPACT_KERNELS = ("compact_bytes",)
@@ -1011,6 +1046,10 @@ def main() -> int:
            "max_memory_allocated": speak, "mismatches": sbad})
     if any(sbad.values()):
         raise AssertionError(f"span ops disagree with Python re: {sbad}")
+    relaunched = {op: [c["launches"] for c in calls] for op, calls in rounds.items()
+                  if any(c["rows"] and c["launches"] != 1 for c in calls)}
+    if relaunched:
+        raise AssertionError(f"all_spans calls that did not launch span_all exactly once: {relaunched}")
 
     # the matchers: first-use set-up (pattern compiles, tables) on a few
     # rows of each set, then the whole sets once

@@ -1,61 +1,98 @@
-// K5: first-match spans with one uint32 bit state per row (certified
-// programs of at most 32 instructions), in two passes: span_back finds the
-// leftmost begin b0 >= start_pos, span_fwd the last END fired from b0.
+// K5: every non-overlapping leftmost(-longest) match span of each row in
+// one launch (span_all), for certified programs of at most 32
+// instructions, one uint32 bit state per row.
 //
 // Replaces the TPU kernels of custrings_tpu/regex/pallas_spans.py::
-// SpanBits.single: _back_kernel_factory (span_back) and
-// _fwd_end_kernel_factory (span_fwd).  The steps are the TPU kernels':
+// SpanBits.single, _back_kernel_factory (:251) and _fwd_end_kernel_factory
+// (:266), together with the round loop around them (custrings_tpu/regex/
+// device.py::DeviceProgram.all_spans, :1171), which relaunches both
+// passes over every row each round.  Here one thread per row does:
 //
-//   back, p = L .. 0, carrying B = B_{p+1} (from p, some match ends):
+//   back, once, p = min(len, L) .. start, carrying B = B_{p+1}:
 //     t    = { i : nrows[i] & B != 0 }         insts whose successor is in B
-//     t2   = (t & pred(c_p)) | (p <= len ? END : 0)
+//     t2   = (t & pred(c_p)) | END             (p <= len on this walk)
 //     B    = { i : crows[uid(p)][i] & t2 != 0 }
-//     b0   = p  where B & start != 0, p <= len and p >= start_pos
-//   fwd, p = 0 .. L:
-//     state |= start at p == b0 (b0 == -1 never injects)
+//     bit p of the row's begin bitmap = (B & start != 0)
+//   B_p ("a match can begin at p") depends on the row's suffix only, not
+//   on where a round starts, so this one walk gives every round's begin:
+//   b0 = the first set bit >= begin.  Then per match:
+//   fwd from b0 (state = start at b0):
 //     closed = OR of crows[uid(p)][i] over the state's bits
 //     e0 = p  where closed & END != 0
 //     state  = OR of nrows[i] over the bits of closed & pred(c_p)
+//     until the state empties or the row ends
+//   record (b0, e0), begin = e0 > b0 ? e0 : begin + 1 (the reference's
+//   advance rule, count.cu:178-199); a row stops at its first miss, after
+//   Rcap matches or once begin > len.  A row walks ~len plus the lengths
+//   of its matches, where the round loop walked len - begin every round.
 //
-// pred(c) is K2's predicate: the class plane membw | CHAR bits | ANY
-// (c != '\n') | ANYNL, all zero at c == 0 (past the row's length).  The
-// program table is K2's (csrc/nfa_bits.cu):
+// The predicates come from the chars, not from per-position planes:
+//   memb(c)  the class bits of c (memb_B ^ memb_M of each class holding
+//            c): a 128-entry table in shared memory for ASCII, the
+//            program's 64K-entry table in device memory (L2-resident) for
+//            the rest of the BMP, and the classes' explicit ranges above
+//            0xFFFF (builtin classes never match there)
+//   pred(c)  memb(c) | CHAR pair bits | ANY (c != '\n') | ANYNL; 0 at c == 0
+//   uid(p)   ctx_map[BOS | PREV_NL | EOS | CUR_NL | WB] from the chars at
+//            p - 1 and p (0 outside the row) and their alnum flags (ASCII
+//            set in shared memory, BMP bits in device memory, none above),
+//            read only for programs with several closure variants
+// The program table is K2's (csrc/nfa_bits.cu):
 //   [U, I, start, end, any, anynl, n_pairs,
-//    crows[U*I], nrows[I], (inst, char) pairs[2*n_pairs]],
-// copied to shared memory by each block.
+//    crows[U*I], nrows[I], (inst, char) pairs[2*n_pairs]]
+// and the char table (regex/nfa_bits.py::NFABits.char_table):
+//   [memb[128], alnum[4], ctx_map[32],
+//    memb_B, n_cls, rmax, memb_M[n_cls], lo[n_cls*rmax], hi[n_cls*rmax]]
+// whose first CT_FIXED words are copied to shared memory by each block.
 //
-// Bound on the H100: device-memory bytes and load latency.  Per row and
-// position each pass reads 4 bytes each of chars and membw (and of uid when
-// the program has several closure variants) and does ~2*I integer ops, far
-// below the card's op rate per byte; each thread's positions are a serial
-// chain.  The TPU kernels run every row over all L + 1 positions in
-// [8, T] slabs; here one thread per row reads the row-major planes in
-// place through their strides (as K2 does: L1 keeps a row's 32-byte sector
-// for its next positions) and walks only the positions that can change
-// its result:
-//   back: B_{p} is 0 for every p > len (no char, no END), so the walk
-//         starts at min(len, L); b0 only moves down and never below
-//         start_pos, so the walk stops at max(start_pos, 0).  A row given
-//         start_pos > len does no work (all_spans passes that for rows
-//         whose round loop has ended).
-//   fwd:  nothing fires before b0, and once the state is empty after the
-//         injection, or the row has ended (c == 0), nothing fires again,
-//         so the walk is b0 .. the end of the longest match.
+// The begin bitmap has ceil((L + 1) / 32) words a row.  It lives in a
+// word-major scratch plane [words, N] (a register array would need a
+// word index known at compile time), so a warp's stores and loads of one
+// word are one 128-byte line.
+//
+// Bound on the H100: device-memory bytes and, in practice, the serial
+// chain of each thread's steps.  The chars of [0, len) are read once by
+// the backward walk, the forward walks read only the match spans again
+// (from L1/L2: they were just walked); per position a step walks only the
+// set bits of its state through transposed tables in shared memory, and
+// an ASCII char's predicate is one shared-memory word.  Neighbouring lanes
+// read rows L*4 bytes apart, so the backward walk comes in two forms
+// (`staged`):
+//   0  each thread loads its row's chars from device memory in place
+//      (L1 keeps a row's 32-byte sector for its next positions);
+//   1  a warp stages its 32 rows' chars through shared memory in tiles of
+//      32 rows x 32 positions (one 128-byte line a row), copied with
+//      cp.async three tiles deep, walking from the warp's longest row
+//      down, and each lane walks its row out of shared memory.
+// The forward walks read device memory directly in both.  On the H100 the
+// in-place loads won at every shape of chip_smoke.py's span_all case, by
+// about 2.5x (the staged form's 50 KB of tiles a block leave 16 warps an
+// SM, and all its lanes wait for the warp's longest row), so the wrapper
+// takes form 0 (regex/span_bits.py::STAGED_BACK); chip_smoke.py times
+// both forms ("span_all forms"), and PERF.md has the numbers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
 constexpr int MAX_U = 32;
 constexpr int MAX_I = 32;
 constexpr int HDR = 7;
 constexpr int MAX_PROG = HDR + MAX_U * MAX_I + MAX_I + 2 * MAX_I;
-
-struct Strides {
-  int64_t row, pos;  // elements between rows / between positions
-};
+// the char table's shared part: memb of chars 0..127, the ASCII alnum set
+// (4 words), ctx_map (32 words); then, in device memory only, the classes
+constexpr int CT_ALNUM = 128;
+constexpr int CT_CTX = 132;
+constexpr int CT_FIXED = 164;
+constexpr int BMP = 65536;  // memb of each BMP char, then its alnum bits
+// a staged tile: 32 rows x 32 positions, rows padded to 33 words so that
+// the lanes' reads of one position fall in 32 different banks
+constexpr int TROW = 33;
+constexpr int TWORDS = 32 * TROW;
+constexpr int STAGE_BYTES = WARPS * 3 * TWORDS * 4;
 
 struct Prog {
   int U, I, n_pairs;
@@ -63,14 +100,21 @@ struct Prog {
   const uint32_t* crows;
   const uint32_t* nrows;
   const uint32_t* pairs;
+  const uint32_t* crows_t;  // [U*I]: bit i of row k is bit k of crows[i]
+  const uint32_t* nrows_t;  // [I]: the same for nrows
+  const uint32_t* pred_a;   // [128]: pred(c) of each ASCII char
 };
 
-__device__ __forceinline__ Prog load_prog(uint32_t* tab, const int32_t* prog,
-                                          int prog_len) {
-  for (int i = threadIdx.x; i < prog_len; i += THREADS) {
-    tab[i] = (uint32_t)prog[i];
-  }
-  __syncthreads();
+struct Chars {
+  const uint32_t* fixed;  // shared: CT_FIXED words
+  const uint32_t* bmp;    // device: memb[65536], alnum bits[2048]
+  const int32_t* cls;     // device: memb_B, n_cls, rmax, memb_M, lo, hi
+};
+
+// the program's fields over its table, already in shared memory
+__device__ __forceinline__ Prog load_prog(const uint32_t* tab,
+                                          const uint32_t* trans,
+                                          const uint32_t* pred_a) {
   Prog g;
   g.U = (int)tab[0];
   g.I = (int)tab[1];
@@ -82,13 +126,56 @@ __device__ __forceinline__ Prog load_prog(uint32_t* tab, const int32_t* prog,
   g.crows = tab + HDR;
   g.nrows = g.crows + g.U * g.I;
   g.pairs = g.nrows + g.I;
+  g.crows_t = trans;
+  g.nrows_t = trans + g.U * g.I;
+  g.pred_a = pred_a;
   return g;
 }
 
-// the consume predicate of a char cur != 0 whose class bits are memb
-__device__ __forceinline__ uint32_t pred_bits(const Prog& g, int32_t cur,
-                                              uint32_t memb) {
-  uint32_t pred = memb;
+__device__ __forceinline__ uint32_t memb_of(const Chars& t, int32_t c) {
+  const uint32_t u = (uint32_t)c;
+  if (u < 128u) return t.fixed[u];
+  if (u < (uint32_t)BMP) return __ldg(t.bmp + u);
+  // above the BMP (or negative): the explicit ranges, each class once
+  uint32_t m = (uint32_t)t.cls[0];
+  const int n = t.cls[1], r = t.cls[2];
+  const int32_t* M = t.cls + 3;
+  const int32_t* lo = M + n;
+  const int32_t* hi = lo + n * r;
+  for (int k = 0; k < n; ++k) {
+    for (int j = 0; j < r; ++j) {
+      if (c >= lo[k * r + j] && c <= hi[k * r + j]) {
+        m ^= (uint32_t)M[k];
+        break;
+      }
+    }
+  }
+  return m;
+}
+
+__device__ __forceinline__ bool alnum_of(const Chars& t, int32_t c) {
+  if (c <= 0) return false;
+  if (c < 128) return (t.fixed[CT_ALNUM + (c >> 5)] >> (c & 31)) & 1u;
+  if (c < BMP) return (__ldg(t.bmp + BMP + (c >> 5)) >> (c & 31)) & 1u;
+  return false;
+}
+
+// the offset of the closure variant at position p in the [U, I] tables,
+// from the chars at p - 1 and p (each 0 outside the row)
+__device__ __forceinline__ int closure_at(const Prog& g, const Chars& t,
+                                          int64_t p, int32_t prev,
+                                          int32_t cur) {
+  if (g.U == 1) return 0;
+  const int ctx = (p == 0 ? 1 : 0) | (prev == 10 ? 2 : 0) |
+                  (cur == 0 ? 4 : 0) | (cur == 10 ? 8 : 0) |
+                  (alnum_of(t, prev) != alnum_of(t, cur) ? 16 : 0);
+  return (int)t.fixed[CT_CTX + ctx] * g.I;
+}
+
+// the consume predicate of a char cur != 0, without the ASCII table
+__device__ __forceinline__ uint32_t pred_slow(const Prog& g, const Chars& t,
+                                              int32_t cur) {
+  uint32_t pred = memb_of(t, cur);
   for (int k = 0; k < g.n_pairs; ++k) {
     if (cur == (int32_t)g.pairs[2 * k + 1]) pred |= 1u << g.pairs[2 * k];
   }
@@ -96,135 +183,260 @@ __device__ __forceinline__ uint32_t pred_bits(const Prog& g, int32_t cur,
   return pred | g.anynl_bits;
 }
 
-__global__ void __launch_bounds__(THREADS)
-span_back(const int32_t* __restrict__ chars, const int32_t* __restrict__ membw,
-          Strides cs, const int32_t* __restrict__ uid, Strides us,
-          const int32_t* __restrict__ lengths,
-          const int32_t* __restrict__ start_pos,
-          const int32_t* __restrict__ prog, int prog_len, int64_t N,
-          int64_t L, int32_t* __restrict__ out) {
-  __shared__ uint32_t tab[MAX_PROG];
-  const Prog g = load_prog(tab, prog, prog_len);
-  const int64_t row = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (row >= N) return;
-
-  const int64_t len = lengths[row];
-  const int64_t w = start_pos[row];
-  const int32_t* crow = chars + row * cs.row;
-  const int32_t* mrow = membw + row * cs.row;
-  const int32_t* urow = uid + row * us.row;
-  const int64_t stop = w > 0 ? w : 0;
-  uint32_t B = 0;  // B_{p+1}; 0 past the row's length
-  int32_t b0 = -1;
-  for (int64_t p = len < L ? len : L; p >= stop; --p) {
-    // here p <= len, so END may close the match at p
-    uint32_t t2 = g.end_bits;
-    if (B != 0u) {
-      uint32_t t = 0;
-      for (int i = 0; i < g.I; ++i) {
-        if (B & g.nrows[i]) t |= 1u << i;
-      }
-      const int64_t pc = p < L ? p : L - 1;
-      const int32_t cur = p < len ? crow[pc * cs.pos] : 0;
-      if (t != 0u && cur != 0) {
-        t2 |= t & pred_bits(g, cur, (uint32_t)mrow[pc * cs.pos]);
-      }
-    }
-    const uint32_t* cr = g.crows;
-    if (g.U > 1) cr += (int64_t)urow[p * us.pos] * g.I;
-    uint32_t nb = 0;
-    for (int i = 0; i < g.I; ++i) {
-      if (t2 & cr[i]) nb |= 1u << i;
-    }
-    B = nb;
-    if (B & g.start_bits) b0 = (int32_t)p;
-  }
-  out[row] = b0;
+__device__ __forceinline__ uint32_t pred_bits(const Prog& g, const Chars& t,
+                                              int32_t cur) {
+  return (uint32_t)cur < 128u ? g.pred_a[cur] : pred_slow(g, t, cur);
 }
 
-__global__ void __launch_bounds__(THREADS)
-span_fwd(const int32_t* __restrict__ chars, const int32_t* __restrict__ membw,
-         Strides cs, const int32_t* __restrict__ uid, Strides us,
-         const int32_t* __restrict__ lengths, const int32_t* __restrict__ begins,
-         const int32_t* __restrict__ prog, int prog_len, int64_t N, int64_t L,
-         int32_t* __restrict__ out) {
-  __shared__ uint32_t tab[MAX_PROG];
-  const Prog g = load_prog(tab, prog, prog_len);
-  const int64_t row = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (row >= N) return;
+// one backward step at p <= len: B_{p+1} -> B_p; cur is the char at p
+// (0 at p == len), prev the char at p - 1 (0 at p == 0)
+__device__ __forceinline__ uint32_t back_step(const Prog& g, const Chars& t,
+                                              uint32_t B, int64_t p,
+                                              int32_t prev, int32_t cur) {
+  // both steps walk the set bits only, through the transposed rows:
+  // { i : rows[i] & x != 0 } = OR of rows_t[k] over the bits k of x
+  uint32_t t2 = g.end_bits;
+  if (B != 0u && cur != 0) {
+    uint32_t tt = 0;
+    for (uint32_t b = B; b != 0u; b &= b - 1) tt |= g.nrows_t[__ffs(b) - 1];
+    t2 |= tt & pred_bits(g, t, cur);
+  }
+  const uint32_t* ct = g.crows_t + closure_at(g, t, p, prev, cur);
+  uint32_t nb = 0;
+  for (uint32_t b = t2; b != 0u; b &= b - 1) nb |= ct[__ffs(b) - 1];
+  return nb;
+}
 
-  const int64_t len = lengths[row];
-  const int64_t b0 = begins[row];
-  const int32_t* crow = chars + row * cs.row;
-  const int32_t* mrow = membw + row * cs.row;
-  const int32_t* urow = uid + row * us.row;
+// the last END fired after injecting the start state at b0 (0 <= b0 <= L),
+// or -1; chars read in place
+__device__ int32_t fwd_end(const Prog& g, const Chars& t,
+                           const int32_t* __restrict__ crow, int64_t len,
+                           int64_t L, int64_t b0) {
   int32_t e0 = -1;
-  uint32_t state = g.start_bits;  // injected at p == b0
-  for (int64_t p = b0; p >= 0 && p <= L; ++p) {
-    const uint32_t* cr = g.crows;
-    if (g.U > 1) cr += (int64_t)urow[p * us.pos] * g.I;
+  uint32_t state = g.start_bits;
+  int32_t prev = (b0 > 0 && b0 - 1 < len) ? crow[b0 - 1] : 0;
+  for (int64_t p = b0; p <= L; ++p) {
+    // the char at p for the anchors (0 past the matrix), and for the
+    // predicate (the last column's past the matrix, as the plain version)
+    const int32_t at = (p < len && p < L) ? crow[p] : 0;
+    const int32_t cur = p < len ? (p < L ? at : crow[L - 1]) : 0;
+    const uint32_t* cr = g.crows + closure_at(g, t, p, prev, at);
     uint32_t closed = 0;
-    for (int i = 0; i < g.I; ++i) {
-      if ((state >> i) & 1u) closed |= cr[i];
-    }
+    for (uint32_t b = state; b != 0u; b &= b - 1) closed |= cr[__ffs(b) - 1];
     if (closed & g.end_bits) e0 = (int32_t)p;
-    const int64_t pc = p < L ? p : L - 1;
-    const int32_t cur = p < len ? crow[pc * cs.pos] : 0;
     if (cur == 0) break;  // no char: the next state is empty
-    const uint32_t fire = closed & pred_bits(g, cur, (uint32_t)mrow[pc * cs.pos]);
+    const uint32_t fire = closed & pred_bits(g, t, cur);
     uint32_t next = 0;
-    for (int i = 0; i < g.I; ++i) {
-      if ((fire >> i) & 1u) next |= g.nrows[i];
-    }
+    for (uint32_t b = fire; b != 0u; b &= b - 1) next |= g.nrows[__ffs(b) - 1];
     state = next;
     if (state == 0u) break;  // no injection after b0: nothing fires again
+    prev = at;
   }
-  out[row] = e0;
+  return e0;
 }
 
-int check_args(int64_t L, int prog_len) {
-  if (prog_len > MAX_PROG || L <= 0) return (int)cudaErrorInvalidValue;
-  return 0;
+__device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int K>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K));
+}
+
+struct Args {
+  const int32_t* chars;
+  int64_t L;
+  const int32_t* lengths;
+  const uint8_t* validity;
+  const int32_t* start_pos;
+  const int32_t* prog;
+  int prog_len;
+  const int32_t* ctab;
+  const uint32_t* bmp;
+  int64_t N;
+  int Rcap, W, counts_only;
+  int32_t* counts;
+  int32_t* B;
+  int32_t* E;
+  uint32_t* scratch;  // [words, N]
+};
+
+template <bool STAGED>
+__global__ void __launch_bounds__(THREADS) span_all(const Args a) {
+  __shared__ uint32_t tab[MAX_PROG];
+  __shared__ uint32_t fixed[CT_FIXED];
+  __shared__ uint32_t trans[MAX_U * MAX_I + MAX_I];
+  __shared__ uint32_t pred_a[128];
+  extern __shared__ int32_t stage[];
+  for (int i = threadIdx.x; i < a.prog_len; i += THREADS) tab[i] = (uint32_t)a.prog[i];
+  for (int i = threadIdx.x; i < CT_FIXED; i += THREADS) fixed[i] = (uint32_t)a.ctab[i];
+  __syncthreads();
+  const Prog g = load_prog(tab, trans, pred_a);
+  const Chars t{fixed, a.bmp, a.ctab + CT_FIXED};
+  // the transposed closure and next rows, and the ASCII predicates
+  for (int e = threadIdx.x; e < (g.U + 1) * g.I; e += THREADS) {
+    const uint32_t* src = e < g.U * g.I ? g.crows + (e / g.I) * g.I : g.nrows;
+    const int k = e % g.I;
+    uint32_t v = 0;
+    for (int i = 0; i < g.I; ++i) v |= ((src[i] >> k) & 1u) << i;
+    trans[e] = v;
+  }
+  for (int c = threadIdx.x; c < 128; c += THREADS) pred_a[c] = pred_slow(g, t, c);
+  __syncthreads();
+
+  const int64_t N = a.N, L = a.L;
+  const int64_t row = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const bool in = row < N;
+  const int64_t len = in ? a.lengths[row] : 0;
+  const int64_t w = in ? (int64_t)(a.start_pos[row] > 0 ? a.start_pos[row] : 0) : 0;
+  const int64_t hi = len < L ? len : L;
+  const bool work = in && a.validity[row] != 0 && w <= hi;
+  const int32_t* crow = a.chars + (in ? row : 0) * L;
+
+  // the backward walk over [w, hi]: the begin bitmap
+  if (STAGED) {
+    const int lane = threadIdx.x & 31;
+    const int64_t row0 = row - lane;
+    int32_t* wbuf = stage + (threadIdx.x >> 5) * 3 * TWORDS;
+    const int t_hi = __reduce_max_sync(0xffffffffu, work ? (int)(hi >> 5) : -1);
+    const int t_lo = __reduce_min_sync(0xffffffffu, work ? (int)(w >> 5) : 1 << 30);
+    const int t_first = t_lo > 0 ? t_lo - 1 : 0;  // p = 32 t_lo reads p - 1
+    auto load = [&](int tile) {
+      int32_t* dst = wbuf + (tile % 3) * TWORDS + lane;
+      const int64_t pos = (int64_t)tile * 32 + lane;
+#pragma unroll 4
+      for (int j = 0; j < 32; ++j) {
+        const int64_t r = row0 + j;
+        const bool ok = r < N && pos < L;
+        cp_async4(dst + j * TROW, ok ? a.chars + r * L + pos : a.chars, ok);
+      }
+    };
+    if (t_hi >= 0) {
+      uint32_t B = 0;
+      load(t_hi);
+      cp_commit();
+      if (t_hi - 1 >= t_first) load(t_hi - 1);
+      cp_commit();
+      for (int tile = t_hi; tile >= t_lo; --tile) {
+        if (tile - 2 >= t_first) load(tile - 2);
+        cp_commit();
+        cp_wait<1>();  // tiles `tile` and `tile - 1` have landed
+        __syncwarp();
+        const int32_t* cb = wbuf + (tile % 3) * TWORDS + lane * TROW;
+        const int32_t* pb = wbuf + ((tile + 2) % 3) * TWORDS + lane * TROW;
+        uint32_t word = 0;
+        for (int j = 31; j >= 0; --j) {
+          const int64_t p = (int64_t)tile * 32 + j;
+          if (work && p <= hi && p >= w) {
+            const int32_t cur = p < len ? cb[j] : 0;  // 0 past L in the tile
+            const int32_t prev = p == 0 ? 0 : (j > 0 ? cb[j - 1] : pb[31]);
+            B = back_step(g, t, B, p, prev, cur);
+            if (B & g.start_bits) word |= 1u << j;
+          }
+        }
+        if (work && tile <= (hi >> 5) && tile >= (w >> 5)) {
+          a.scratch[(int64_t)tile * N + row] = word;
+        }
+        __syncwarp();  // every lane is done with the tile before its refill
+      }
+      cp_wait<0>();
+    }
+  } else if (work) {
+    uint32_t B = 0, word = 0;
+    int32_t cur = 0;  // the char at hi: hi == len, or hi == L past the matrix
+    for (int64_t p = hi; p >= w; --p) {
+      const int32_t prev = p > 0 ? crow[p - 1] : 0;
+      B = back_step(g, t, B, p, prev, cur);
+      if (B & g.start_bits) word |= 1u << (p & 31);
+      if ((p & 31) == 0 || p == w) {
+        a.scratch[(p >> 5) * N + row] = word;
+        word = 0;
+      }
+      cur = prev;
+    }
+  }
+  if (!in) return;
+
+  // the matches: next begin bit, forward walk, advance
+  int cnt = 0;
+  if (work) {
+    int64_t begin = w;
+    const int64_t wlast = hi >> 5;
+    while (cnt < a.Rcap && begin <= hi) {
+      int64_t wi = begin >> 5;
+      uint32_t bits = a.scratch[wi * N + row] & (~0u << (begin & 31));
+      int64_t b0 = -1;
+      for (;;) {
+        if (bits != 0u) {
+          b0 = wi * 32 + __ffs(bits) - 1;
+          break;
+        }
+        if (++wi > wlast) break;
+        bits = a.scratch[wi * N + row];
+      }
+      if (b0 < 0) break;
+      const int32_t e0 = fwd_end(g, t, crow, len, L, b0);
+      if (e0 < 0) break;
+      if (!a.counts_only) {
+        a.B[row * a.W + cnt] = (int32_t)b0;
+        a.E[row * a.W + cnt] = e0;
+      }
+      ++cnt;
+      begin = e0 > b0 ? (int64_t)e0 : begin + 1;
+      if (begin > len) break;
+    }
+  }
+  a.counts[row] = cnt;
+  for (int r = a.counts_only ? 0 : cnt; r < a.W; ++r) {
+    a.B[row * a.W + r] = -1;
+    a.E[row * a.W + r] = -1;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// chars, membw: int32 [N, L] with element strides (c_row, c_pos), the same
-// for both; uid: int32 [N, L + 1] with strides (u_row, u_pos), read only
-// when the program has several closure variants (U > 1; else null);
-// lengths, start_pos: int32 [N]; prog: int32 table of prog_len entries
-// (layout above); out: int32 [N], the leftmost begin b0 or -1.
-int cs_span_back(const void* chars, const void* membw, int64_t c_row,
-                 int64_t c_pos, const void* uid, int64_t u_row, int64_t u_pos,
-                 const void* lengths, const void* start_pos, const void* prog,
-                 int prog_len, int64_t N, int64_t L, void* out, void* stream) {
+// chars: int32 [N, L] row-major; lengths, start_pos: int32 [N]; validity:
+// uint8 [N]; prog: int32 table of prog_len entries and ctab: int32 char
+// table of ctab_len entries (layouts above); bmp: uint32 [65536 + 2048];
+// counts: int32 [N]; B, E: int32 [N, W] (W = 1 with counts_only, else
+// Rcap), -1 past a row's count (all -1 with counts_only); scratch: uint32
+// [(L + 32) / 32, N].  staged picks the backward walk's form.
+int cs_span_all(const void* chars, int64_t L, const void* lengths,
+                const void* validity, const void* start_pos, const void* prog,
+                int prog_len, const void* ctab, int ctab_len, const void* bmp,
+                int64_t N, int Rcap, int counts_only, int staged,
+                void* counts, void* B, void* E, void* scratch, void* stream) {
   if (N <= 0) return (int)cudaGetLastError();
-  if (int err = check_args(L, prog_len)) return err;
+  if (prog_len > MAX_PROG || ctab_len < CT_FIXED + 3 || L <= 0 || Rcap < 0 ||
+      (L + 32) / 32 > (1 << 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Args a{(const int32_t*)chars, L, (const int32_t*)lengths,
+         (const uint8_t*)validity, (const int32_t*)start_pos,
+         (const int32_t*)prog, prog_len, (const int32_t*)ctab,
+         (const uint32_t*)bmp, N, Rcap, counts_only ? 1 : Rcap,
+         counts_only, (int32_t*)counts, (int32_t*)B, (int32_t*)E,
+         (uint32_t*)scratch};
   const unsigned grid = (unsigned)((N + THREADS - 1) / THREADS);
-  span_back<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)chars, (const int32_t*)membw, Strides{c_row, c_pos},
-      (const int32_t*)uid, Strides{u_row, u_pos}, (const int32_t*)lengths,
-      (const int32_t*)start_pos, (const int32_t*)prog, prog_len, N, L,
-      (int32_t*)out);
-  return (int)cudaGetLastError();
-}
-
-// As cs_span_back, with begins: int32 [N] the b0 of span_back; out: int32
-// [N], the position of the last END fired from b0, or -1.
-int cs_span_fwd(const void* chars, const void* membw, int64_t c_row,
-                int64_t c_pos, const void* uid, int64_t u_row, int64_t u_pos,
-                const void* lengths, const void* begins, const void* prog,
-                int prog_len, int64_t N, int64_t L, void* out, void* stream) {
-  if (N <= 0) return (int)cudaGetLastError();
-  if (int err = check_args(L, prog_len)) return err;
-  const unsigned grid = (unsigned)((N + THREADS - 1) / THREADS);
-  span_fwd<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)chars, (const int32_t*)membw, Strides{c_row, c_pos},
-      (const int32_t*)uid, Strides{u_row, u_pos}, (const int32_t*)lengths,
-      (const int32_t*)begins, (const int32_t*)prog, prog_len, N, L,
-      (int32_t*)out);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (staged) {
+    cudaError_t err = cudaFuncSetAttribute(
+        span_all<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, STAGE_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    span_all<true><<<grid, THREADS, STAGE_BYTES, s>>>(a);
+  } else {
+    span_all<false><<<grid, THREADS, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -40,8 +40,7 @@ LAUNCHES = {
     "nfa_bits": 0,
     "route_compact": 0,
     "route_expand": 0,
-    "span_back": 0,
-    "span_fwd": 0,
+    "span_all": 0,
     "nfa_words": 0,
     "hash": 0,
     "compact_bytes": 0,
@@ -68,11 +67,9 @@ _SIGNATURES = {
     "cs_compact": ([_P, _P, _P, _I64, _I32, _P, _P], _I32),
     "cs_expand": ([_P, _P, _P, _I64, _I64, _I32, _P, _P, _P], _I32),
     # spans.cu
-    "cs_span_back": (
-        [_P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _I32, _I64, _I64, _P, _P], _I32
-    ),
-    "cs_span_fwd": (
-        [_P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _I32, _I64, _I64, _P, _P], _I32
+    "cs_span_all": (
+        [_P, _I64, _P, _P, _P, _P, _I32, _P, _I32, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P],
+        _I32,
     ),
     # nfa_words.cu
     "cs_nfa_words": ([_P, _P, _P, _P, _P, _I32, _I64, _I64, _I32, _I32, _P, _P], _I32),

@@ -8,9 +8,9 @@ per-position closure variants that K2 and K2b read (`position_uid`, the
 uid half of the TPU kernels' `_pos_tables`), the vector engine
 `nfa_matches` and the chunked engine `nfa_matches_chunked` (plain torch,
 as the JAX package left them to XLA), and the span router `spans_single`
-/ `all_spans` on the bit span passes (K5).  The tables are built on the
-host with the same numpy code and kept as CPU tensors; `on(name,
-device)` hands out a cached device copy.  The bit matchers are
+/ `all_spans` on the span kernel (K5, one launch per call).  The tables
+are built on the host with the same numpy code and kept as CPU tensors;
+`on(name, device)` hands out a cached device copy.  The bit matchers are
 `regex/nfa_bits.py` (K2) and `regex/nfa_words.py` (K2b), the span passes
 `regex/span_bits.py`.
 
@@ -506,41 +506,18 @@ class DeviceProgram:
 
     def all_spans(self, chars, lengths, validity, Rcap: int, ascii: bool = False,
                   counts_only: bool = False):
-        """ALL non-overlapping leftmost matches per row: a round loop around
-        `spans_single` with the reference's advance rule (count.cu:178-199:
-        begin = end if end > begin else begin + 1).
+        """ALL non-overlapping leftmost matches per row, with the
+        reference's advance rule (count.cu:178-199: begin = end if end >
+        begin else begin + 1), in one pass of the span kernel (K5,
+        `SpanBits.all`): the JAX package's round loop of `spans_single`
+        with each row walked back once.
 
         Returns (counts int32[N], begins int32[N, Rcap], ends int32[N,
         Rcap]); match r of a row sits in column r, -1 past its count (with
-        counts_only the planes are [N, 1] of -1).  A row leaves the loop
-        for good at its first miss or when its begin passes its length.
-
-        The per-position planes are built once for all rounds (the JAX
-        package rebuilds them inside each round), and a row that has left
-        the loop is given a start past its length, so the span passes skip
-        it; its result was masked out anyway."""
+        counts_only the planes are [N, 1] of -1).  A row stops at its first
+        miss, after Rcap matches or when its begin passes its length.  The
+        predicates come from the program's char tables, so `ascii` is a
+        hint the kernel does not need; it is accepted for the callers'
+        ASCII / non-ASCII split."""
         sb = self._span_bits_or_raise()
-        N, L = chars.shape
-        dev = chars.device
-        membw, uid = sb.tables(chars, lengths, ascii)
-        lens = lengths.to(torch.int32)
-        W = 1 if counts_only else Rcap
-        B = torch.full((N, W), -1, dtype=torch.int32, device=dev)
-        E = torch.full((N, W), -1, dtype=torch.int32, device=dev)
-        counts = torch.zeros(N, dtype=torch.int32, device=dev)
-        begins = torch.zeros(N, dtype=torch.int32, device=dev)
-        active = validity.to(torch.bool).clone()
-        skip = torch.full_like(begins, (1 << 31) - 1)
-        r = 0
-        while r < Rcap and bool(active.any()):
-            m, b, e = sb.spans(chars, lens, torch.where(active, begins, skip), membw, uid)
-            hit = active & m
-            counts += hit.to(torch.int32)
-            if not counts_only:
-                B[:, r] = torch.where(hit, b, -1)
-                E[:, r] = torch.where(hit, e, -1)
-            begins = torch.where(hit, torch.where(e > b, e, begins + 1), begins)
-            active = hit & (begins <= lens)
-            r += 1
-        return counts, B, E
-
+        return sb.all(chars, lengths, validity, Rcap, counts_only=counts_only)

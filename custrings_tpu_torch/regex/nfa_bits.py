@@ -15,13 +15,22 @@ bit-identical to uint32.
 
 from __future__ import annotations
 
+from functools import cached_property
+
+import numpy as np
 import torch
 
 from .. import kernels
 from ..column import i32_bits
+from ..unicode.tables import FLAG_ALPHANUM, host_tables
 from .compiler import ANY, ANYNL, CCLASS, CHAR, NCCLASS
 
 MAX_BITS_INSTS = 32
+#: offsets in `NFABits.char_table`, as csrc/spans.cu reads it: the ASCII
+#: alnum set, ctx_map, then the class part [memb_B, n_cls, rmax, ...]
+CT_ALNUM, CT_CTX, CT_CLS = 128, 132, 164
+#: chars below this read `NFABits.memb_bmp`; above it only the ranges
+BMP = 65536
 
 
 def pallas_supported(dp) -> bool:
@@ -83,18 +92,48 @@ class NFABits:
         self.table = torch.tensor([i32_bits(v) for v in table], dtype=torch.int32)
         self._on = {}
 
-    def _table_on(self, device):
-        key = str(device)
+    def on(self, name: str, device) -> torch.Tensor:
+        """Cached copy of table `name` on `device` (as DeviceProgram.on)."""
+        key = (name, str(device))
         if key not in self._on:
-            self._on[key] = self.table.to(device)
+            self._on[key] = getattr(self, name).to(device)
         return self._on[key]
 
-    def _crows_on(self, device):
-        """int64[U, I] closure rows on `device` (the plain versions' table)."""
-        key = ("crows", str(device))
-        if key not in self._on:
-            self._on[key] = torch.tensor(self.crows, dtype=torch.int64, device=device)
-        return self._on[key]
+    @cached_property
+    def crows_i64(self) -> torch.Tensor:
+        """int64[U, I] closure rows (the plain versions' table)."""
+        return torch.tensor(self.crows, dtype=torch.int64)
+
+    # -- the span kernel's char tables (csrc/spans.cu), built on first use
+
+    @cached_property
+    def memb_bmp(self) -> torch.Tensor:
+        """int32[65536 + 2048]: the class bit word of each BMP char (memb_B
+        ^ memb_M[k] of each class k holding it), then the 64K table's alnum
+        flag as bits (bit c & 31 of word c >> 5)."""
+        tab = self.dp.class_tab.numpy()
+        memb = np.full(BMP, self.memb_B & 0xFFFFFFFF, np.int64)
+        for k, m in enumerate(self.memb_M):
+            if m:
+                memb ^= tab[k].astype(np.int64) * (m & 0xFFFFFFFF)
+        flags, _ = host_tables()
+        alnum = ((flags.astype(np.int64) & FLAG_ALPHANUM) > 0).reshape(BMP // 32, 32)
+        words = (alnum.astype(np.int64) << np.arange(32, dtype=np.int64)).sum(axis=1)
+        return torch.from_numpy(i32_bits(np.concatenate([memb, words])).astype(np.int32))
+
+    @cached_property
+    def char_table(self) -> torch.Tensor:
+        """int32: [memb of chars 0..127, the ASCII alnum set (4 words),
+        ctx_map (32), memb_B, n_cls, rmax, memb_M[n_cls], the classes'
+        explicit ranges lo[n_cls, rmax] and hi[n_cls, rmax]] (the ranges
+        decide chars above the BMP; builtins never match there)."""
+        dp = self.dp
+        n_cls, rmax = dp.cls_lo.shape
+        head = [self.memb_B, n_cls, rmax, *self.memb_M]
+        return torch.cat([
+            self.memb_bmp[:128], dp.alnum_ascii, dp.ctx_map.to(torch.int32),
+            torch.tensor(head, dtype=torch.int32), dp.cls_lo.flatten(), dp.cls_hi.flatten(),
+        ])
 
     def matches(self, chars, lengths, anchored: bool, ascii: bool = False):
         """bool[N]: does the program match row r (anchored: at 0)?
@@ -131,7 +170,7 @@ class NFABits:
         lens = lengths.to(torch.int32).contiguous()
         if membw.shape != (N, L) or lens.shape != (N,):
             raise ValueError("nfa_bits: membw or lengths do not fit the char matrix")
-        table = self._table_on(chars.device)
+        table = self.on("table", chars.device)
         planes = [chars, membw, lens, table]
         if self.U > 1:  # the kernel reads uid only with several variants
             uid = uid.to(torch.int32).contiguous()
@@ -174,7 +213,7 @@ class NFABits:
 
     def _closure_rows(self, uid, p: int, N: int, device):
         """int64[N, I]: each row's closure table at position p."""
-        crows = self._crows_on(device)
+        crows = self.on("crows_i64", device)
         return crows[uid[:, p]] if self.U > 1 else crows[0].expand(N, self.I)
 
     def _or_rows(self, bits, rows):
@@ -197,3 +236,48 @@ class NFABits:
         if self.anynl_bits:
             pred |= torch.where(cur != 0, self.anynl_bits, 0)
         return torch.where(cur != 0, pred, 0)
+
+    # -- the predicates from the span kernel's char tables --------------
+
+    def _memb_plain(self, c):
+        """int64 class bit word (32 bits used) of chars c, any shape, read
+        from `char_table` and `memb_bmp` as csrc/spans.cu reads them."""
+        dev = c.device
+        ct = self.on("char_table", dev).to(torch.int64) & 0xFFFFFFFF
+        bmp = self.on("memb_bmp", dev)[:BMP].to(torch.int64) & 0xFFFFFFFF
+        c = c.to(torch.int64)
+        n, r = int(ct[CT_CLS + 1]), int(ct[CT_CLS + 2])
+        M, lo, hi = ct[CT_CLS + 3 :].split([n, n * r, n * r])[:3]
+        astral = torch.full_like(c, int(ct[CT_CLS]))
+        cE = c[..., None]
+        for k in range(n):
+            hit = ((cE >= lo[k * r : (k + 1) * r]) & (cE <= hi[k * r : (k + 1) * r])).any(dim=-1)
+            astral ^= torch.where(hit, M[k], 0)
+        bmp_m = torch.where(c < 128, ct[c.clamp(0, 127)], bmp[c.clamp(0, BMP - 1)])
+        return torch.where((c >= 0) & (c < BMP), bmp_m, astral)
+
+    def _alnum_plain(self, c):
+        """bool: the word-boundary alnum flag of chars c (int64), from the
+        same tables: the ASCII set, the BMP bits, false above."""
+        dev = c.device
+        ct = self.on("char_table", dev).to(torch.int64)
+        bmp = self.on("memb_bmp", dev)[BMP:].to(torch.int64)
+        w = torch.where(c < 128, ct[CT_ALNUM + (c.clamp(0, 127) >> 5)], bmp[c.clamp(0, BMP - 1) >> 5])
+        return (c > 0) & (c < BMP) & (((w >> (c & 31)) & 1) != 0)
+
+    def _uid_plane(self, chars, lens):
+        """int64[N, L+1]: each position's closure variant (EOS slot
+        included) from the chars at p - 1 and p (0 outside the row and
+        past the matrix) and `char_table`'s ctx_map, as csrc/spans.cu
+        computes it; None for a program with one variant."""
+        if self.U == 1:
+            return None
+        N, L = chars.shape
+        c = chars.to(torch.int64)
+        pos = torch.arange(L + 1, dtype=torch.int64, device=c.device)[None, :]
+        lensE = lens.to(torch.int64)[:, None]
+        F = torch.nn.functional
+        cur = torch.where((pos < lensE) & (pos < L), F.pad(c, (0, 1)), 0)
+        prev = torch.where((pos > 0) & (pos - 1 < lensE), F.pad(c, (1, 0))[:, : L + 1], 0)
+        ctx = self.dp._ctx(prev, cur, self._alnum_plain(prev), self._alnum_plain(cur), pos == 0)
+        return self.on("char_table", chars.device)[CT_CTX + ctx].to(torch.int64)

@@ -1,6 +1,7 @@
 """Where the port's slice spends its time at 1M rows, on one CUDA card.
 
-    python3 profile_slice.py         # after chip_smoke.py has passed
+    python3 profile_slice.py               # after chip_smoke.py has passed
+    python3 profile_slice.py --all-spans   # the all_spans part alone
 
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
 "THE"), dictionary_encode, the growing and shrinking replace_literal
@@ -14,10 +15,16 @@ the wall time, the summed device time and the twelve device items that
 took longest.  Then the parts of contains_re(#\\w+) and contains_re(ERR)
 timed alone with CUDA events: the char matrix (for #\\w+ on the streaming
 view and K1 window routes), the per-position tables and the K2 / K2b
-wrapper; and K2b's planes and kernel by program on the log rows.  Last, the three
-ops in sequence on a fresh column on each padded-view route (the
+wrapper; and K2b's planes and kernel by program on the log rows.  Then
+the three ops in sequence on a fresh column on each padded-view route (the
 streaming view the slice takes at 1M rows, and the K1 window view),
-alternated stream, window, window, stream.  One JSON line each.
+alternated stream, window, window, stream.  Last, DeviceProgram.all_spans
+per call on the tweet rows' [1M, 320] char matrix for each span pattern
+of chip_smoke.py's span_all case, counts only and with full planes: CUDA
+event ms, peak device memory above the inputs, and the kernel launches
+of one call.  It calls only what the span ops call, so it times an
+earlier tree's all_spans the same way, with that tree first on sys.path.
+One JSON line each.
 """
 
 from __future__ import annotations
@@ -38,6 +45,36 @@ def _timed(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def all_spans_part(torch, strs) -> None:
+    """all_spans per call at [1M, 320] for each span kernel pattern."""
+    from custrings_tpu_torch import column, kernels
+    from custrings_tpu_torch.ops import layout
+    from custrings_tpu_torch.regex import ops as rx
+
+    col = column.from_host_strings(strs, "cuda")
+    chars, nch = layout.char_matrix(col, layout.max_row_bytes(col))
+    L = chars.shape[1]
+    for pat in cs.SPAN_KERNEL_PATTERNS:
+        dp = rx._span_program(pat)
+        most = max(int(dp.all_spans(chars, nch, col.validity, L + 2, counts_only=True)[0].max()), 1)
+        for label, R, co in (("counts only", L + 2, True), ("full planes", most, False)):
+            call = lambda R=R, co=co: dp.all_spans(chars, nch, col.validity, R, counts_only=co)  # noqa: E731
+            call()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            call()
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            peak = torch.cuda.max_memory_allocated() - base
+            print(json.dumps({
+                "part": "all_spans", "pattern": pat, "call": label, "Rcap": R,
+                "shape": [int(chars.shape[0]), int(L)], "ms": cs._time_ms(torch, call),
+                "peak_bytes_above_inputs": peak, "launches": launches,
+            }), flush=True)
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -45,6 +82,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA card", file=sys.stderr)
         return 1
+    if "--all-spans" in sys.argv[1:]:
+        all_spans_part(torch, cs.make_corpus(cs.ROWS, seed=0))
+        print(cs._nvidia_smi(), flush=True)
+        return 0
     from custrings_tpu_torch import column
     from custrings_tpu_torch.ops import hash, layout, modify, split, unique
     from custrings_tpu_torch.regex import ops as rx
@@ -156,6 +197,7 @@ def main() -> int:
         _, ms["dictionary_encode"] = _timed(torch, lambda: ops["dictionary_encode"][1](r))
         print(json.dumps({"route": route, "ms": ms, "sum_ms": sum(ms.values())}), flush=True)
     layout.STREAM_VIEW_MIN = default_min
+    all_spans_part(torch, strs)
     print(cs._nvidia_smi(), flush=True)
     return 0
 

@@ -1,12 +1,17 @@
 """Port parity for K5: the plain span passes of custrings_tpu_torch
-(`regex/span_bits.py`) against the JAX package's `SpanBits.single`, whose
-two Pallas kernels run in interpret mode here.  Exact (matched, begin,
-end) on the bit-engine test corpus plus seeded rows, from position 0 and
-from seeded random start positions.
+(`regex/span_bits.py`) against the JAX package.  Exact (matched, begin,
+end) against `SpanBits.single`, whose two Pallas kernels run in interpret
+mode here, on the bit-engine test corpus plus seeded rows, from position
+0 and from seeded random start positions; exact (counts, begins, ends)
+of `DeviceProgram.all_spans` (`SpanBits._all_plain`) against the JAX
+package's `all_spans` on its own CPU route, null rows included; and the
+span kernel's char tables against K2's per-position planes.
 
 The JAX executor is built directly (`SpanBits(PallasNFA(dp))`), so the
 comparison does not depend on the CUSTRINGS_SPAN_BITS routing switch or on
 the program cache it sets."""
+
+import re
 
 import numpy as np
 import pytest
@@ -14,10 +19,13 @@ import torch
 
 import jax.numpy as jnp
 
+from custrings_tpu import column as jcol
 from custrings_tpu.regex import ops as jrx
 from custrings_tpu.regex.pallas_nfa import PallasNFA
 from custrings_tpu.regex.pallas_spans import SpanBits as JSpanBits
+from custrings_tpu_torch import column as tcol
 from custrings_tpu_torch.regex import ops as trx
+from custrings_tpu_torch.regex.device import DeviceProgram
 from custrings_tpu_torch.regex.nfa_bits import NFABits
 from custrings_tpu_torch.regex.span_bits import SpanBits, span_bits_ok
 
@@ -86,3 +94,88 @@ def test_uncertified_program_is_refused():
     assert not span_bits_ok(dp.prog)
     with pytest.raises(ValueError, match="longest_safe or end_unique"):
         SpanBits(NFABits(dp))
+
+
+def _valid(n, seed=5):
+    """Seeded validity with ~1 row in 6 null."""
+    return np.random.default_rng(seed).random(n) >= 1 / 6
+
+
+@pytest.mark.parametrize("counts_only", [False, True])
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_all_spans_equal_jax(pattern, counts_only):
+    chars, lens = _mat(TEXTS)
+    valid = _valid(len(TEXTS))
+    Rcap = chars.shape[1] + 2
+    want = jrx.get_program(pattern).all_spans(
+        jnp.asarray(chars), jnp.asarray(lens), jnp.asarray(valid), Rcap, True, False, (), counts_only
+    )
+    got = trx.get_program(pattern).all_spans(
+        torch.from_numpy(chars), torch.from_numpy(lens), torch.from_numpy(valid), Rcap,
+        counts_only=counts_only,
+    )
+    for g, w, name in zip(got, want, ("counts", "begins", "ends")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"{pattern} {name}")
+    assert got[0].dtype == torch.int32 and got[1].shape == (len(TEXTS), 1 if counts_only else Rcap)
+    assert int(got[0].sum()) > 0
+
+
+@pytest.mark.parametrize("pattern", ["a*", "the|that", r"\bthe\b"])
+def test_all_spans_round_cap_below_the_counts(pattern):
+    chars, lens = _mat(TEXTS + ["thethethe the that", "aaa a a aa", "the the the x"])
+    valid = _valid(chars.shape[0], seed=6)
+    want = jrx.get_program(pattern).all_spans(
+        jnp.asarray(chars), jnp.asarray(lens), jnp.asarray(valid), 2, True, False, (), False
+    )
+    got = trx.get_program(pattern).all_spans(
+        torch.from_numpy(chars), torch.from_numpy(lens), torch.from_numpy(valid), 2
+    )
+    assert int(np.asarray(jrx.get_program(pattern).all_spans(
+        jnp.asarray(chars), jnp.asarray(lens), jnp.asarray(valid), 8, True, False, (), True
+    )[0]).max()) > 2  # the cap cuts some rows
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=pattern)
+
+
+_TABLE_TEXTS = ["", "the cat_1 sat", "a\nb", "café über naïve", "日本語 テキスト", "😀 the 𝔘x",
+                "#ü_1 é@ß", "x😀y\n𝔘\n", "ÀÉÎ ĳ ǅ", "tab\tend"]
+
+
+@pytest.mark.parametrize("pattern", [r"#\w+", r"(\w+)@(\w+)", r"\bthe\b", r"[^a-z]+x", r"[\U0001F600-\U0001F64F]|[a-c]",
+                                     r"^\W\s", r"\d+\D"])
+def test_char_tables_equal_k2_planes(pattern):
+    """membw and uid from the span kernel's char tables (ASCII set, BMP
+    table, explicit ranges above the BMP, ctx_map) equal K2's planes."""
+    nfa = NFABits(trx.get_program(pattern))
+    chars, lens = (torch.from_numpy(a) for a in _mat(_TABLE_TEXTS))
+    membw, uid = nfa._pos_tables(chars, lens, False)
+    got = nfa._memb_plain(chars)
+    assert torch.equal(got, membw.to(torch.int64) & 0xFFFFFFFF)
+    planes = nfa._uid_plane(chars, lens)
+    assert (planes is None) == (uid is None) == (nfa.U == 1)
+    if nfa.U > 1:
+        assert torch.equal(planes, uid.to(torch.int64))
+    ascii_rows = [i for i, t in enumerate(_TABLE_TEXTS) if t.isascii()]
+    a_membw, a_uid = nfa._pos_tables(chars[ascii_rows], lens[ascii_rows], True)
+    assert torch.equal(got[ascii_rows], a_membw.to(torch.int64) & 0xFFFFFFFF)
+    if nfa.U > 1:
+        assert torch.equal(planes[ascii_rows], a_uid.to(torch.int64))
+
+
+def test_span_ops_build_no_position_planes(monkeypatch):
+    """all_spans (count_re, findall_record, replace_re) never builds K2's
+    membw / uid planes; the ops still equal the JAX package's."""
+    def refuse(*a, **k):
+        raise AssertionError("a per-position plane was built on the span path")
+
+    monkeypatch.setattr(NFABits, "_pos_tables", refuse)
+    monkeypatch.setattr(DeviceProgram, "position_uid", refuse)
+    rows = TEXTS + [None, "ün@ï the", "😀 #tag"]
+    col, jc = tcol.from_host_strings(rows, "cpu"), jcol.from_host_strings(rows)
+    got = trx.count_re(col, r"\bthe\b").numpy()
+    np.testing.assert_array_equal(got, np.asarray(jrx.count_re(jc, r"\bthe\b")))
+    assert got.sum() > 0
+    found, jfound = trx.findall_record(col, r"#\w+"), jrx.findall_record(jc, r"#\w+")
+    np.testing.assert_array_equal(found.row_offsets.numpy(), np.asarray(jfound.row_offsets))
+    replaced = tcol.to_host_strings(trx.replace_re(col, r"(\w+)@(\w+)", "E"))
+    assert replaced == jcol.to_host_strings(jrx.replace_re(jc, r"(\w+)@(\w+)", "E"))
