@@ -10,7 +10,7 @@ Phases, each printing one JSON line:
                times, the kernel's bound (the larger of its bytes over
                the card's 3.35 TB/s and its ops over 67 T op/s) and,
                where one PyTorch call computes the same function, that
-               call's time; span_all's two backward walks side by side
+               call's time
      views   — the two padded-view routes at the slice's widths: the
                streaming view (K4c/K4e, the route the slice takes at 1M
                rows) against the K1 window gather, compared exactly, timed
@@ -536,33 +536,7 @@ def _kernel_phase(torch, col, width):
          "custrings_tpu/regex/device.py:1171 all_spans)",
          span_cases, span_bound, None),
     ]
-    recs = _measure(torch, cases, slow=("nfa_bits",), one_plain=("span_all",))
-    _span_forms(torch, span_cases)
-    return recs
-
-
-def _span_forms(torch, span_cases):
-    """span_all's two backward walks (span_bits.STAGED_BACK: 1 stages each
-    warp's chars through shared memory, 0 loads them in place) at each
-    shape, exactly equal, timed in turns 0, 1, 1, 0."""
-    from custrings_tpu_torch.regex import span_bits
-
-    default = span_bits.STAGED_BACK
-    rows = []
-    try:
-        for label, kern, _ in span_cases:
-            outs, ms = {}, {0: [], 1: []}
-            for form in (0, 1, 1, 0):
-                span_bits.STAGED_BACK = form
-                if form not in outs:
-                    outs[form] = kern()
-                ms[form].append(_time_ms(torch, kern))
-            _compare(torch, f"span_all forms {label}", outs[1], outs[0])
-            rows.append({"shape": label, "in_place_ms": ms[0], "staged_ms": ms[1]})
-    finally:
-        span_bits.STAGED_BACK = default
-    _emit({"phase": "span_all forms", "default": default, "tolerance": "exact (torch.equal)",
-           "shapes": rows})
+    return _measure(torch, cases, slow=("nfa_bits",), one_plain=("span_all",))
 
 
 def _measure(torch, cases, slow=(), one_plain=()):
@@ -820,7 +794,7 @@ def _run_spans(torch, strs):
     {op: [all_spans calls, as _SpanLog records them]})."""
     from custrings_tpu_torch import nvstrings
 
-    times, rounds = {}, {}
+    times, calls = {}, {}
     step = _stepper(torch, times)
     s = step("to_device", lambda: nvstrings.to_device(strs, device="cuda"))
     ops = [("count", lambda: s.count(SPAN_COUNT)),
@@ -830,10 +804,10 @@ def _run_spans(torch, strs):
     for name, fn in ops:
         with _SpanLog() as log:
             out[name] = step(name, fn)
-        rounds[name] = log.calls
+        calls[name] = log.calls
     found = step("findall_to_host", lambda: _records_to_host(out["findall_record"]))
     replaced = step("replace_re_to_host", out["replace_re"].to_host)
-    return (out["count"], found, replaced), times, rounds
+    return (out["count"], found, replaced), times, calls
 
 
 def _check_spans(strs, results):
@@ -1037,17 +1011,17 @@ def main() -> int:
         raise AssertionError(f"slice output disagrees with the Python oracles: {bad}")
 
     torch.cuda.reset_peak_memory_stats()
-    (sresults, stimes, rounds), span_launches = _driven(torch, kernels, _run_spans, strs)
+    (sresults, stimes, span_calls), span_launches = _driven(torch, kernels, _run_spans, strs)
     speak = torch.cuda.max_memory_allocated()
     sbad = _check_spans(strs, sresults)
     _emit({"phase": "spans", "rows": ROWS, "ms": {k: v * 1e3 for k, v in stimes.items()},
-           "all_spans_calls": rounds, "matches": {"count": sum(sresults[0]),
+           "all_spans_calls": span_calls, "matches": {"count": sum(sresults[0]),
            "findall_record": sum(len(r) for r in sresults[1] if r is not None)},
            "max_memory_allocated": speak, "mismatches": sbad})
     if any(sbad.values()):
         raise AssertionError(f"span ops disagree with Python re: {sbad}")
-    relaunched = {op: [c["launches"] for c in calls] for op, calls in rounds.items()
-                  if any(c["rows"] and c["launches"] != 1 for c in calls)}
+    relaunched = {op: [c["launches"] for c in cs] for op, cs in span_calls.items()
+                  if any(c["rows"] and c["launches"] != 1 for c in cs)}
     if relaunched:
         raise AssertionError(f"all_spans calls that did not launch span_all exactly once: {relaunched}")
 

@@ -55,21 +55,13 @@
 // the backward walk, the forward walks read only the match spans again
 // (from L1/L2: they were just walked); per position a step walks only the
 // set bits of its state through transposed tables in shared memory, and
-// an ASCII char's predicate is one shared-memory word.  Neighbouring lanes
-// read rows L*4 bytes apart, so the backward walk comes in two forms
-// (`staged`):
-//   0  each thread loads its row's chars from device memory in place
-//      (L1 keeps a row's 32-byte sector for its next positions);
-//   1  a warp stages its 32 rows' chars through shared memory in tiles of
-//      32 rows x 32 positions (one 128-byte line a row), copied with
-//      cp.async three tiles deep, walking from the warp's longest row
-//      down, and each lane walks its row out of shared memory.
-// The forward walks read device memory directly in both.  On the H100 the
-// in-place loads won at every shape of chip_smoke.py's span_all case, by
-// about 2.5x (the staged form's 50 KB of tiles a block leave 16 warps an
-// SM, and all its lanes wait for the warp's longest row), so the wrapper
-// takes form 0 (regex/span_bits.py::STAGED_BACK); chip_smoke.py times
-// both forms ("span_all forms"), and PERF.md has the numbers.
+// an ASCII char's predicate is one shared-memory word.  Each thread loads
+// its row's chars in place (L1 keeps a row's 32-byte sector for its next
+// positions).  A form that staged each warp's 32 rows through shared
+// memory in 32 x 32 tiles by cp.async, so that the loads were coalesced,
+// was slower at every shape of chip_smoke.py's span_all case on the H100,
+// by about 2.5x: its 50 KB of tiles a block left 16 warps an SM, and all
+// its lanes waited for the warp's longest row (PERF.md has both times).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,7 +69,6 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
 constexpr int MAX_U = 32;
 constexpr int MAX_I = 32;
 constexpr int HDR = 7;
@@ -88,11 +79,6 @@ constexpr int CT_ALNUM = 128;
 constexpr int CT_CTX = 132;
 constexpr int CT_FIXED = 164;
 constexpr int BMP = 65536;  // memb of each BMP char, then its alnum bits
-// a staged tile: 32 rows x 32 positions, rows padded to 33 words so that
-// the lanes' reads of one position fall in 32 different banks
-constexpr int TROW = 33;
-constexpr int TWORDS = 32 * TROW;
-constexpr int STAGE_BYTES = WARPS * 3 * TWORDS * 4;
 
 struct Prog {
   int U, I, n_pairs;
@@ -235,22 +221,6 @@ __device__ int32_t fwd_end(const Prog& g, const Chars& t,
   return e0;
 }
 
-__device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src,
-                                          bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int K>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(K));
-}
-
 struct Args {
   const int32_t* chars;
   int64_t L;
@@ -269,13 +239,11 @@ struct Args {
   uint32_t* scratch;  // [words, N]
 };
 
-template <bool STAGED>
 __global__ void __launch_bounds__(THREADS) span_all(const Args a) {
   __shared__ uint32_t tab[MAX_PROG];
   __shared__ uint32_t fixed[CT_FIXED];
   __shared__ uint32_t trans[MAX_U * MAX_I + MAX_I];
   __shared__ uint32_t pred_a[128];
-  extern __shared__ int32_t stage[];
   for (int i = threadIdx.x; i < a.prog_len; i += THREADS) tab[i] = (uint32_t)a.prog[i];
   for (int i = threadIdx.x; i < CT_FIXED; i += THREADS) fixed[i] = (uint32_t)a.ctab[i];
   __syncthreads();
@@ -294,62 +262,14 @@ __global__ void __launch_bounds__(THREADS) span_all(const Args a) {
 
   const int64_t N = a.N, L = a.L;
   const int64_t row = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  const bool in = row < N;
-  const int64_t len = in ? a.lengths[row] : 0;
-  const int64_t w = in ? (int64_t)(a.start_pos[row] > 0 ? a.start_pos[row] : 0) : 0;
+  if (row >= N) return;
+  const int64_t len = a.lengths[row];
+  const int64_t w = a.start_pos[row] > 0 ? a.start_pos[row] : 0;
   const int64_t hi = len < L ? len : L;
-  const bool work = in && a.validity[row] != 0 && w <= hi;
-  const int32_t* crow = a.chars + (in ? row : 0) * L;
-
-  // the backward walk over [w, hi]: the begin bitmap
-  if (STAGED) {
-    const int lane = threadIdx.x & 31;
-    const int64_t row0 = row - lane;
-    int32_t* wbuf = stage + (threadIdx.x >> 5) * 3 * TWORDS;
-    const int t_hi = __reduce_max_sync(0xffffffffu, work ? (int)(hi >> 5) : -1);
-    const int t_lo = __reduce_min_sync(0xffffffffu, work ? (int)(w >> 5) : 1 << 30);
-    const int t_first = t_lo > 0 ? t_lo - 1 : 0;  // p = 32 t_lo reads p - 1
-    auto load = [&](int tile) {
-      int32_t* dst = wbuf + (tile % 3) * TWORDS + lane;
-      const int64_t pos = (int64_t)tile * 32 + lane;
-#pragma unroll 4
-      for (int j = 0; j < 32; ++j) {
-        const int64_t r = row0 + j;
-        const bool ok = r < N && pos < L;
-        cp_async4(dst + j * TROW, ok ? a.chars + r * L + pos : a.chars, ok);
-      }
-    };
-    if (t_hi >= 0) {
-      uint32_t B = 0;
-      load(t_hi);
-      cp_commit();
-      if (t_hi - 1 >= t_first) load(t_hi - 1);
-      cp_commit();
-      for (int tile = t_hi; tile >= t_lo; --tile) {
-        if (tile - 2 >= t_first) load(tile - 2);
-        cp_commit();
-        cp_wait<1>();  // tiles `tile` and `tile - 1` have landed
-        __syncwarp();
-        const int32_t* cb = wbuf + (tile % 3) * TWORDS + lane * TROW;
-        const int32_t* pb = wbuf + ((tile + 2) % 3) * TWORDS + lane * TROW;
-        uint32_t word = 0;
-        for (int j = 31; j >= 0; --j) {
-          const int64_t p = (int64_t)tile * 32 + j;
-          if (work && p <= hi && p >= w) {
-            const int32_t cur = p < len ? cb[j] : 0;  // 0 past L in the tile
-            const int32_t prev = p == 0 ? 0 : (j > 0 ? cb[j - 1] : pb[31]);
-            B = back_step(g, t, B, p, prev, cur);
-            if (B & g.start_bits) word |= 1u << j;
-          }
-        }
-        if (work && tile <= (hi >> 5) && tile >= (w >> 5)) {
-          a.scratch[(int64_t)tile * N + row] = word;
-        }
-        __syncwarp();  // every lane is done with the tile before its refill
-      }
-      cp_wait<0>();
-    }
-  } else if (work) {
+  const int32_t* crow = a.chars + row * L;
+  int cnt = 0;
+  if (a.validity[row] != 0 && w <= hi) {
+    // the backward walk over [w, hi]: the begin bitmap
     uint32_t B = 0, word = 0;
     int32_t cur = 0;  // the char at hi: hi == len, or hi == L past the matrix
     for (int64_t p = hi; p >= w; --p) {
@@ -362,12 +282,7 @@ __global__ void __launch_bounds__(THREADS) span_all(const Args a) {
       }
       cur = prev;
     }
-  }
-  if (!in) return;
-
-  // the matches: next begin bit, forward walk, advance
-  int cnt = 0;
-  if (work) {
+    // the matches: next begin bit, forward walk, advance
     int64_t begin = w;
     const int64_t wlast = hi >> 5;
     while (cnt < a.Rcap && begin <= hi) {
@@ -410,12 +325,12 @@ extern "C" {
 // table of ctab_len entries (layouts above); bmp: uint32 [65536 + 2048];
 // counts: int32 [N]; B, E: int32 [N, W] (W = 1 with counts_only, else
 // Rcap), -1 past a row's count (all -1 with counts_only); scratch: uint32
-// [(L + 32) / 32, N].  staged picks the backward walk's form.
+// [(L + 32) / 32, N].
 int cs_span_all(const void* chars, int64_t L, const void* lengths,
                 const void* validity, const void* start_pos, const void* prog,
                 int prog_len, const void* ctab, int ctab_len, const void* bmp,
-                int64_t N, int Rcap, int counts_only, int staged,
-                void* counts, void* B, void* E, void* scratch, void* stream) {
+                int64_t N, int Rcap, int counts_only, void* counts, void* B,
+                void* E, void* scratch, void* stream) {
   if (N <= 0) return (int)cudaGetLastError();
   if (prog_len > MAX_PROG || ctab_len < CT_FIXED + 3 || L <= 0 || Rcap < 0 ||
       (L + 32) / 32 > (1 << 30)) {
@@ -428,15 +343,7 @@ int cs_span_all(const void* chars, int64_t L, const void* lengths,
          counts_only, (int32_t*)counts, (int32_t*)B, (int32_t*)E,
          (uint32_t*)scratch};
   const unsigned grid = (unsigned)((N + THREADS - 1) / THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (staged) {
-    cudaError_t err = cudaFuncSetAttribute(
-        span_all<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, STAGE_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    span_all<true><<<grid, THREADS, STAGE_BYTES, s>>>(a);
-  } else {
-    span_all<false><<<grid, THREADS, 0, s>>>(a);
-  }
+  span_all<<<grid, THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -68,7 +68,7 @@ _SIGNATURES = {
     "cs_expand": ([_P, _P, _P, _I64, _I64, _I32, _P, _P, _P], _I32),
     # spans.cu
     "cs_span_all": (
-        [_P, _I64, _P, _P, _P, _P, _I32, _P, _I32, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P],
+        [_P, _I64, _P, _P, _P, _P, _I32, _P, _I32, _P, _I64, _I32, _I32, _P, _P, _P, _P, _P],
         _I32,
     ),
     # nfa_words.cu

@@ -30,10 +30,6 @@ import torch
 from .. import kernels
 from .nfa_bits import NFABits
 
-#: the backward walk's form in `span_all` (csrc/spans.cu): 1 stages each
-#: warp's chars through shared memory, 0 loads them in place
-STAGED_BACK = 0
-
 
 def span_bits_ok(prog) -> bool:
     """Program classes whose priority end == last-fire end."""
@@ -102,7 +98,7 @@ class SpanBits:
         err = kernels.lib().cs_span_all(
             chars.data_ptr(), L, lens.data_ptr(), valid.data_ptr(), start.data_ptr(),
             table.data_ptr(), table.shape[0], ctab.data_ptr(), ctab.shape[0], bmp.data_ptr(),
-            N, Rcap, int(counts_only), STAGED_BACK, counts.data_ptr(), B.data_ptr(),
+            N, Rcap, int(counts_only), counts.data_ptr(), B.data_ptr(),
             E.data_ptr(), scratch.data_ptr(), kernels.stream_ptr(chars),
         )
         kernels.check(err, "span_all")
