@@ -25,7 +25,8 @@ Phases, each printing one JSON line:
                span_all exactly once
      logs    — make_logs(2^20) and make_long_logs(2,048) rows, and the
                Python `re` oracles of the matchers phase
-     kernels — K2b (nfa_words) on the log rows for ERR, ISO and MONTH,
+     kernels — K2b (nfa_words) on the log rows for ERR, ISO and MONTH
+               (and ERR without its \b, one closure variant, beside it),
                K6 (hash) over the tweet corpus, K7 (compact_bytes) over its
                capacity, each against its plain version, exactly
      compact — compact_bytes(data, data != " ", capacity) once, against
@@ -33,12 +34,15 @@ Phases, each printing one JSON line:
   5. matchers — contains and match through the facade: ERR, ISO, MONTH on
                the 2^20 log rows (K2b), BIG on their first 65,536 (the
                vector engine), ERR, ISO, MONTH on the 2,048 long rows (the
-               chunked engine), every row against Python `re`, and every
-               call held to the engine its set is there to drive
+               chunked engine), every row against Python `re`, every
+               call held to the engine its set is there to drive, and
+               every K2/K2b-routed call (here and the slice's contains)
+               held to one engine call that launched its kernel once
   6. hash    — nvstrings.hash on the tweet rows against a numpy
                MurmurHash3_32 (seed 31), itself held to the reference vector
   7. launches — each path's kernel counters (reset just before the path,
-               read just after) are above zero for the kernels it runs
+               read just after) are above zero for the kernels it runs;
+               K3 sum's launches are also split by input size
 Then the kernels JSON line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line.  Any failure exits nonzero.
 
@@ -74,6 +78,8 @@ BIG = (r"\b(january|february|march|april|may|june|july|august|september|october|
        r"|out of memory|permission denied|disk full|segmentation fault|stack overflow"
        r"|null pointer|broken pipe|timed out|access denied)\b")
 K2B_PATTERNS = (ERR, ISO, MONTH)
+#: ERR without its word boundaries: one closure variant, timed beside ERR
+ERR_NB = ERR.replace(r"\b", "")
 LOG_ROWS = 1 << 20
 BIG_ROWS = 1 << 16
 LONG_ROWS = 2048
@@ -438,16 +444,16 @@ def _span_all_bound(torch, nch, valid, L, W, B, E):
     return 4 * int(row[valid].sum()) + n * (4 + 1 + 4) + 8 * n * W, (back + fwd) * 10
 
 
-def _walk(torch, nfa, per_row: int, first, end):
-    """(bytes, ops) of a bit-state walk over positions first..end-1 of each
-    row (none where end <= first): chars and membw (and uid with several
-    closure variants) read at each position plus per_row bytes a row, and
-    per position the two loops over the instructions (~3 ops per
-    instruction each) and the char compares of the predicate."""
+def _walk(torch, per_row: int, first, end):
+    """(bytes, ops) of K2's walk over positions first..end-1 of each row
+    (none where end <= first): the chars (4 bytes a position; the
+    predicates and closure variants are computed from them) plus per_row
+    bytes a row, and per position at least 10 ops: the char's address and
+    test, the injection, the closure and predicate lookups and their ORs,
+    the end test (the set-bit walks add ~4 ops per state bit, which the
+    data decides)."""
     npos = (end.to(torch.int64) - first.to(torch.int64)).clamp(min=0).sum().item()
-    per_pos = 12 if nfa.U > 1 else 8
-    ops = 6 * nfa.I + 2 * len(nfa.char_pairs) + 10
-    return npos * per_pos + per_row * first.shape[0], npos * ops
+    return npos * 4 + per_row * first.shape[0], npos * 10
 
 
 def _kernel_phase(torch, col, width):
@@ -469,7 +475,7 @@ def _kernel_phase(torch, col, width):
     chars, nch = layout.char_matrix(col, width)
     N, L = chars.shape
     nfa = rx._get_nfa(PATTERN)
-    membw, uid = nfa._pos_tables(chars, nch, True)  # as the main path builds them
+    chars4 = _unaligned(torch, chars)
     keep, k0, live, dist = _route_inputs(torch, col, width)
     k0_first = cumsum0(first)
     out_cap = col.size * width
@@ -489,7 +495,7 @@ def _kernel_phase(torch, col, width):
     # up to the leftmost match begin, and the whole row where nothing
     # matches
     row_end = torch.minimum(nch, torch.full_like(nch, L))
-    k2_hits = nfa._matches_plain(chars, nch, membw, uid, False)
+    k2_hits = nfa._matches_plain(chars, nch, False)
     first_b = spans[2][1]._all_plain(chars, nch, torch.ones_like(valid), 1, zero, False)[1][:, 0]
     k2_end = torch.where(k2_hits, first_b + 1, row_end)
     cases = [
@@ -525,12 +531,15 @@ def _kernel_phase(torch, col, width):
          (cap * (1 + 4 + 1) + out_cap * 2, 0), None),
         ("nfa_bits", "csrc/nfa_bits.cu", "custrings_tpu/regex/pallas_nfa.py:418",
          [(f"{PATTERN} unanchored [{n},{width}]",
-           lambda: nfa._matches_bits(chars, nch, membw, uid, False),
-           lambda: nfa._matches_plain(chars, nch, membw, uid, False)),
+           lambda: nfa._matches_bits(chars, nch, False),
+           lambda: nfa._matches_plain(chars, nch, False)),
           (f"{PATTERN} anchored [{n},{width}]",
-           lambda: nfa._matches_bits(chars, nch, membw, uid, True),
-           lambda: nfa._matches_plain(chars, nch, membw, uid, True))],
-         _walk(torch, nfa, 4 + 1, zero, k2_end), None),
+           lambda: nfa._matches_bits(chars, nch, True),
+           lambda: nfa._matches_plain(chars, nch, True)),
+          (f"{PATTERN} unanchored [{n},{width}], rows not 16-byte aligned (4-byte loads)",
+           lambda: nfa._matches_bits(chars4, nch, False),
+           lambda: nfa._matches_plain(chars4, nch, False))],
+         _walk(torch, 4 + 1, zero, k2_end), None),
         ("span_all", "csrc/spans.cu",
          "custrings_tpu/regex/pallas_spans.py:251 and :266 (SpanBits.single, looped by "
          "custrings_tpu/regex/device.py:1171 all_spans)",
@@ -573,12 +582,22 @@ def _measure(torch, cases, slow=(), one_plain=()):
 
 def _walk_words(torch, nfa, first, end):
     """(bytes, ops) of K2b's walk over positions first..end-1 of each row:
-    chars and W membership words (and uid with several closure variants)
-    read at each position plus 5 bytes a row, and per position at least the
-    injection, one closure row and the end test over the W words."""
+    the chars (4 bytes a position; the predicates and closure variants are
+    computed from them) plus lengths and output (5 bytes a row), and per
+    position at least the injection, one closure row and the end test over
+    the W words."""
     npos = (end.to(torch.int64) - first.to(torch.int64)).clamp(min=0).sum().item()
-    per_pos = 4 + 4 * nfa.W32 + (4 if nfa.U > 1 else 0)
-    return npos * per_pos + 5 * first.shape[0], npos * (8 + 6 * nfa.W32)
+    return npos * 4 + 5 * first.shape[0], npos * (8 + 6 * nfa.W32)
+
+
+def _unaligned(torch, chars):
+    """A copy of the char matrix one element past a 16-byte boundary: the
+    K2/K2b kernels read its rows with 4-byte loads, where an aligned matrix
+    of a width divisible by 4 takes 16-byte loads."""
+    buf = torch.empty(chars.numel() + 1, dtype=chars.dtype, device=chars.device)
+    out = buf[1:].view(chars.shape)
+    out.copy_(chars)
+    return out
 
 
 def _compact_inputs(torch, data):
@@ -601,24 +620,26 @@ def _compact_inputs(torch, data):
 
 def _kernel_phase_rest(torch, col, logs_col, err_starts):
     """K2b on the log rows (ERR, ISO and MONTH, unanchored and anchored;
-    ERR unanchored is the headline shape), K6 over the tweet corpus and K7
-    over its capacity, each against its plain version."""
+    ERR unanchored is the headline shape; then ERR without its word
+    boundaries, and ISO read with 4-byte loads), K6 over the tweet corpus
+    and K7 over its capacity, each against its plain version."""
     from custrings_tpu_torch.ops import compact, hash, layout
     from custrings_tpu_torch.regex import ops as rx
 
     chars, nch = layout.char_matrix(logs_col)
     N, L = chars.shape
+    chars4 = _unaligned(torch, chars)
     k2b = []
-    for pat in K2B_PATTERNS:
+    names = {ERR: "ERR", ISO: "ISO", MONTH: "MONTH", ERR_NB: "ERR without \\b"}
+    shapes = [(p, a, chars) for p in K2B_PATTERNS for a in (False, True)]
+    shapes += [(ERR_NB, False, chars), (ISO, False, chars4)]
+    for pat, anchored, ch in shapes:
         nfa = rx._get_nfa(pat)
-        membw, uid = nfa._pos_tables(chars, nch, True)  # as the main path builds them
-        name = {ERR: "ERR", ISO: "ISO", MONTH: "MONTH"}[pat]
-        for anchored in (False, True):
-            mode = "anchored" if anchored else "unanchored"
-            tag = f"{name} ({nfa.I} insts, W32 {nfa.W32}, U {nfa.U}) {mode} [{N},{L}]"
-            k2b.append((tag,
-                        lambda nfa=nfa, m=membw, u=uid, a=anchored: nfa._matches_words(chars, nch, m, u, a),
-                        lambda nfa=nfa, m=membw, u=uid, a=anchored: nfa._matches_plain(chars, nch, m, u, a)))
+        mode = "anchored" if anchored else "unanchored"
+        loads = ", rows not 16-byte aligned (4-byte loads)" if ch is chars4 else ""
+        tag = f"{names[pat]} ({nfa.I} insts, W32 {nfa.W32}, U {nfa.U}) {mode} [{N},{L}]{loads}"
+        k2b.append((tag, lambda nfa=nfa, a=anchored, ch=ch: nfa._matches_words(ch, nch, a),
+                    lambda nfa=nfa, a=anchored, ch=ch: nfa._matches_plain(ch, nch, a)))
     # the positions K2b must read for ERR unanchored: each row up to at
     # least its leftmost match begin (Python re), the whole row where
     # nothing matches
@@ -708,13 +729,15 @@ def _records_to_host(recs):
 
 def _run_slice(torch, strs):
     """The facade chain; returns (contains/replace/encode results, the
-    size-changing rewrites' results, per-op seconds)."""
+    size-changing rewrites' results, per-op seconds, the matcher engine
+    calls of contains as _RouteLog records them)."""
     from custrings_tpu_torch import nvcategory, nvstrings
 
     times = {}
     step = _stepper(torch, times)
     s = step("to_device", lambda: nvstrings.to_device(strs, device="cuda"))
-    hits = step("contains", lambda: s.contains(PATTERN))
+    with _RouteLog() as log:
+        hits = step("contains", lambda: s.contains(PATTERN))
     r = step("replace", lambda: s.replace("the", "THE", regex=False))
     cat = step("dictionary_encode", lambda: nvcategory.from_strings(r))
     grown = step("replace_grow", lambda: s.replace("the", "THEE", regex=False))
@@ -726,7 +749,7 @@ def _run_slice(torch, strs):
     grown_h = step("grown_to_host", grown.to_host)
     shrunk_h = step("shrunk_to_host", shrunk.to_host)
     tokens_h = step("tokens_to_host", lambda: _records_to_host(tokens))
-    return (hits, replaced, keys, values, cat.keys_size()), (grown_h, shrunk_h, tokens_h), times
+    return (hits, replaced, keys, values, cat.keys_size()), (grown_h, shrunk_h, tokens_h), times, log.calls
 
 
 def _check_slice(strs, results):
@@ -832,29 +855,39 @@ def _matcher_sets(logs, long_rows):
 
 #: the engines every call of each matcher set must take, and no other
 MATCHER_ROUTES = {"logs": ["K2b"], "logs_big": ["vector"], "long": ["chunked"]}
-#: (module, class, method, engine) of the boolean matcher's four engines
-_ENGINES = (("nfa_bits", "NFABits", "matches", "K2"), ("nfa_words", "NFAWords", "matches", "K2b"),
-            ("device", "DeviceProgram", "nfa_matches", "vector"),
-            ("device", "DeviceProgram", "nfa_matches_chunked", "chunked"))
+#: (module, class, method, engine, kernel counter) of the boolean
+#: matcher's four engines
+_ENGINES = (("nfa_bits", "NFABits", "matches", "K2", "nfa_bits"),
+            ("nfa_words", "NFAWords", "matches", "K2b", "nfa_words"),
+            ("device", "DeviceProgram", "nfa_matches", "vector", None),
+            ("device", "DeviceProgram", "nfa_matches_chunked", "chunked", None))
 
 
 class _RouteLog:
-    """Records which of the boolean matcher's engines run while active, by
-    wrapping their entry points; `engines` lists them, sorted."""
+    """Records each call of the boolean matcher's engines while active, by
+    wrapping their entry points: its engine, rows, width and, for K2 and
+    K2b, the launches of its kernel; `engines` lists the engines taken,
+    sorted."""
 
     def __enter__(self):
+        from custrings_tpu_torch import kernels
         from custrings_tpu_torch.regex import device, nfa_bits, nfa_words
 
         mods = {"device": device, "nfa_bits": nfa_bits, "nfa_words": nfa_words}
-        self._seen, self._saved = set(), []
-        for mod, cls_name, meth, engine in _ENGINES:
+        self.calls, self._saved = [], []
+        for mod, cls_name, meth, engine, counter in _ENGINES:
             cls = getattr(mods[mod], cls_name)
             fn = getattr(cls, meth)
             self._saved.append((cls, meth, fn))
 
-            def logged(obj, *a, _fn=fn, _engine=engine, **k):
-                self._seen.add(_engine)
-                return _fn(obj, *a, **k)
+            def logged(obj, chars, *a, _fn=fn, _engine=engine, _counter=counter, **k):
+                n0 = kernels.LAUNCHES[_counter] if _counter else 0
+                out = _fn(obj, chars, *a, **k)
+                self.calls.append({
+                    "engine": _engine, "rows": int(chars.shape[0]), "width": int(chars.shape[1]),
+                    "launches": kernels.LAUNCHES[_counter] - n0 if _counter else None,
+                })
+                return out
 
             setattr(cls, meth, logged)
         return self
@@ -865,8 +898,18 @@ class _RouteLog:
 
     @property
     def engines(self):
-        return sorted(self._seen)
+        return sorted({c["engine"] for c in self.calls})
 
+
+def _relaunched(calls_by_op):
+    """{op: launches of each engine call} of the ops routed to K2 or K2b
+    that did not make exactly one engine call launching its kernel once."""
+    bad = {}
+    for op, calls in calls_by_op.items():
+        launches = [c["launches"] for c in calls]
+        if calls and {c["engine"] for c in calls} <= {"K2", "K2b"} and launches != [1]:
+            bad[op] = launches
+    return bad
 
 def _matcher_oracle(sets):
     """{(set, filter, op): per-row results} from Python re (None for null
@@ -883,10 +926,10 @@ def _matcher_oracle(sets):
 def _run_matchers(torch, sets):
     """contains and match of every filter of every set through the facade;
     returns (results, per-op seconds, per-op peak device memory, per-op
-    engines)."""
+    engine calls as _RouteLog records them)."""
     from custrings_tpu_torch import nvstrings
 
-    times, peaks, out, routes = {}, {}, {}, {}
+    times, peaks, out, calls = {}, {}, {}, {}
     step = _stepper(torch, times, peaks)
     for set_name, strs, filters in sets:
         s = step(f"{set_name} to_device", lambda: nvstrings.to_device(strs, device="cuda"))
@@ -894,9 +937,9 @@ def _run_matchers(torch, sets):
             for op in ("contains", "match"):
                 with _RouteLog() as log:
                     out[set_name, fname, op] = step(f"{set_name} {op} {fname}", getattr(s, op), pat)
-                routes[set_name, fname, op] = log.engines
+                calls[set_name, fname, op] = log.calls
         del s
-    return out, times, peaks, routes
+    return out, times, peaks, calls
 
 
 def _run_hash(torch, strs):
@@ -926,7 +969,7 @@ def _driven(torch, kernels, run, strs):
     kernels.reset_launches()
     res = run(torch, strs)
     torch.cuda.synchronize()
-    return res, dict(kernels.LAUNCHES)
+    return res, {**kernels.LAUNCHES, "scan_sum_by_size": dict(kernels.SCAN_SUM_SIZES)}
 
 
 #: the kernels each path must launch at 1M rows
@@ -999,16 +1042,20 @@ def main() -> int:
     _run_spans(torch, strs[:4096])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    (results, rewrites, times), slice_launches = _driven(torch, kernels, _run_slice, strs)
+    (results, rewrites, times, contains_calls), slice_launches = _driven(torch, kernels, _run_slice, strs)
     peak = torch.cuda.max_memory_allocated()
     bad, nkeys = _check_slice(strs, results)
     bad.update(_check_rewrites(strs, rewrites))
     op_s = sum(v for k, v in times.items() if k in ("contains", "replace", "dictionary_encode"))
     _emit({"phase": "slice", "rows": ROWS, "ms": {k: v * 1e3 for k, v in times.items()},
            "rows_per_s_contains_replace_encode": ROWS / op_s,
-           "max_memory_allocated": peak, "keys": nkeys, "mismatches": bad})
+           "max_memory_allocated": peak, "keys": nkeys, "contains_engine_calls": contains_calls,
+           "mismatches": bad})
     if any(bad.values()):
         raise AssertionError(f"slice output disagrees with the Python oracles: {bad}")
+    relaunched = _relaunched({"contains": contains_calls})
+    if relaunched or [c["engine"] for c in contains_calls] != ["K2"]:
+        raise AssertionError(f"the slice's contains did not take K2 in one launch: {contains_calls}")
 
     torch.cuda.reset_peak_memory_stats()
     (sresults, stimes, span_calls), span_launches = _driven(torch, kernels, _run_spans, strs)
@@ -1028,18 +1075,24 @@ def main() -> int:
     # the matchers: first-use set-up (pattern compiles, tables) on a few
     # rows of each set, then the whole sets once
     _run_matchers(torch, [(n, rows[:64], f) for n, rows, f in sets])
-    (mresults, mtimes, mpeaks, mroutes), matcher_launches = _driven(torch, kernels, _run_matchers, sets)
+    (mresults, mtimes, mpeaks, mcalls), matcher_launches = _driven(torch, kernels, _run_matchers, sets)
     mbad = {" ".join(k): _mismatches(mresults[k], want[k]) for k in want}
-    off_route = {" ".join(k): v for k, v in mroutes.items() if v != MATCHER_ROUTES[k[0]]}
+    mroutes = {" ".join(k): sorted({c["engine"] for c in v}) for k, v in mcalls.items()}
+    off_route = {k: v for k, v in mroutes.items() if v != MATCHER_ROUTES[k.split(" ")[0]]}
+    kernel_calls = {" ".join(k): [c["launches"] for c in v] for k, v in mcalls.items()
+                    if v and v[0]["launches"] is not None}
     _emit({"phase": "matchers", "rows": {n: len(rows) for n, rows, _ in sets},
            "ms": {k: v * 1e3 for k, v in mtimes.items()}, "max_memory_allocated": mpeaks,
-           "engines": {" ".join(k): v for k, v in mroutes.items()},
+           "engines": mroutes, "kernel_launches_per_engine_call": kernel_calls,
            "true_rows": {" ".join(k): sum(bool(b) for b in v) for k, v in mresults.items()},
            "mismatches": mbad})
     if any(mbad.values()):
         raise AssertionError(f"matchers disagree with Python re: {mbad}")
     if off_route:
         raise AssertionError(f"matchers took other engines than {MATCHER_ROUTES}: {off_route}")
+    relaunched = _relaunched({" ".join(k): v for k, v in mcalls.items()})
+    if relaunched:
+        raise AssertionError(f"K2/K2b matcher calls that did not launch their kernel once: {relaunched}")
     del mresults, want
     torch.cuda.empty_cache()
 

@@ -2,112 +2,98 @@
 // most 32 instructions), for contains_re / match_re.
 //
 // Replaces the TPU kernel custrings_tpu/regex/pallas_nfa.py::
-// PallasNFA._matches_bits (body _bit_kernel_factory).  The step per
-// position p = 0..L is exactly the TPU kernel's:
-//   1. start injection: at p == 0 only when anchored, otherwise while
-//      matched == 0 && p <= len;
-//   2. eps-closure: OR of crows[uid][i] over every set state bit i;
+// PallasNFA._matches_bits (body _bit_kernel_factory) and the per-position
+// planes built in front of it (pallas_nfa.py:255: the class bits of every
+// char, the closure variant of every position).  The step per
+// position p = 0..min(len, L) is the TPU kernel's:
+//   1. start injection: at p == 0 only when anchored, otherwise at every
+//      p <= len (a row leaves the loop at its first match);
+//   2. eps-closure: OR of crows[variant][i] over the set state bits i;
 //   3. matched |= (closed & end_bits) != 0;
-//   4. predicate: class plane membw | CHAR bits | ANY (c != '\n' && c != 0)
-//      | ANYNL (c != 0), all masked by c != 0;
-//   5. transition: OR of nrows[i] over every fired bit i.
-// The TPU bakes the program tables into the kernel as Python ints; here
-// they arrive as one small int32 array per program and sit in shared
-// memory:  [U, I, start, end, any, anynl, n_pairs,
-//           crows[U*I], nrows[I], (inst, char) pairs[2*n_pairs]].
+//   4. predicate pred(c_p) (0 at c == 0, so the EOS slot consumes nothing);
+//   5. transition: OR of nrows[i] over the fired bits i of closed & pred.
+// Both walks visit only the set bits (__ffs).  The predicate and the
+// closure variant are computed from the chars at p - 1 and p through the
+// program's char tables (nfa_chars.cuh): an ASCII char's predicate is one
+// shared-memory word, and the variant (programs with several only) comes
+// from the two chars' context bits, the previous char's alnum flag carried
+// over from the last step.  The TPU bakes the program tables into the
+// kernel as Python ints; here they arrive as one small int32 array per
+// program (K2's table, nfa_chars.cuh) and sit in shared memory with the
+// char table's head.
 //
-// Bound on the H100: device-memory bytes and load latency.  Per row and
-// position the kernel reads 4 bytes each of chars and membw (and of uid
-// when the program has several closure variants) and does ~2*I integer
-// ops; at I = 7 (`#\w+`) that is ~14 ops per 8 bytes, far below the card's
-// op rate per byte.  Each thread's positions form a serial chain.
-//
-// Design: one thread per row, reading the planes where they lie.  The
-// kernel takes each plane's row and position strides, and the wrapper
-// passes the row-major [N, L] tensors torch built, so no copy is made.
-// Read row-major, a warp's step touches one 32-byte sector per row and the
-// next seven positions of that row find the same sector in L1.  Measured
-// at 1M rows x 320 (`#\w+`, NVIDIA H100 80GB HBM3, 700 W): 1.41 ms
-// row-major against 1.50 ms on position-major copies, whose transposes
-// cost 11.3 ms per plane.  A row stops at p = min(len, L): past its
-// length the predicate is 0 and injection has ended, so the state stays 0
-// and the result cannot change (the TPU runs every lane to L).  A row
-// also stops at its first match, since `matched` only ORs.
+// Bound on the H100: device-memory bytes and load latency.  The kernel
+// reads 4 bytes of chars a position and the row's length, writes one byte
+// a row; a step is a few shared-memory lookups and ~4 integer ops a live
+// state bit, far below the card's op rate per byte.  Each thread's
+// positions form a serial chain.  One thread per row reads its row of the
+// row-major char matrix in place: a warp's step touches one 32-byte sector
+// per row and the row's next positions find it in L1 (1.41 ms row-major
+// against 1.50 ms on position-major copies at 1M rows x 320, whose
+// transposes cost 11.3 ms a plane; NVIDIA H100 80GB HBM3, 700 W).  With
+// the row 16-byte aligned (L % 4 == 0), each thread loads four chars at a
+// time.  A row stops at p = min(len, L), at its first match, and, anchored,
+// once its state is empty (no later injection can revive it).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "nfa_chars.cuh"
+
 namespace {
 
+using namespace nfa_chars;
+
 constexpr int THREADS = 256;
-constexpr int MAX_U = 32;
-constexpr int MAX_I = 32;
-constexpr int HDR = 7;
-constexpr int MAX_PROG = HDR + MAX_U * MAX_I + MAX_I + 2 * MAX_I;
+constexpr int HEAD = head_words(1);
 
-struct Strides {
-  int64_t row, pos;  // elements between rows / between positions
-};
-
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
-nfa_bits(const int32_t* __restrict__ chars, const int32_t* __restrict__ membw,
-         Strides cs, const int32_t* __restrict__ uid, Strides us,
-         const int32_t* __restrict__ lengths, const int32_t* __restrict__ prog,
-         int prog_len, int64_t N, int64_t L, int anchored,
-         uint8_t* __restrict__ out) {
+nfa_bits(const int32_t* __restrict__ chars, const int32_t* __restrict__ lengths,
+         const int32_t* __restrict__ prog, int prog_len,
+         const int32_t* __restrict__ ctab, const uint32_t* __restrict__ bmp,
+         int64_t N, int64_t L, int anchored, uint8_t* __restrict__ out) {
   __shared__ uint32_t tab[MAX_PROG];
-  for (int i = threadIdx.x; i < prog_len; i += THREADS) {
-    tab[i] = (uint32_t)prog[i];
-  }
+  __shared__ uint32_t head[HEAD];
+  for (int i = threadIdx.x; i < prog_len; i += THREADS) tab[i] = (uint32_t)prog[i];
+  for (int i = threadIdx.x; i < HEAD; i += THREADS) head[i] = (uint32_t)ctab[i];
   __syncthreads();
   const int64_t row = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (row >= N) return;
-
-  const int U = (int)tab[0];
-  const int I = (int)tab[1];
-  const uint32_t start_bits = tab[2], end_bits = tab[3];
-  const uint32_t any_bits = tab[4], anynl_bits = tab[5];
-  const int n_pairs = (int)tab[6];
-  const uint32_t* crows = tab + HDR;
-  const uint32_t* nrows = crows + U * I;
-  const uint32_t* pairs = nrows + I;
+  const Prog g = load_prog(tab);
+  const Chars t = chars_of<1>(head, bmp, ctab);
 
   const int64_t len = lengths[row];
-  const int32_t* crow = chars + row * cs.row;
-  const int32_t* mrow = membw + row * cs.row;
-  const int32_t* urow = uid + row * us.row;
   const int64_t last = len < L ? len : L;
-  uint32_t state = 0, matched = 0;
+  RowChars<VEC> rc{chars + row * L};
+  uint32_t state = 0;
+  bool matched = false, al_prev = false;
+  int32_t prev = 0;
   for (int64_t p = 0; p <= last; ++p) {
-    const int64_t pc = p < L ? p : L - 1;
-    const int32_t cur = p < len ? crow[pc * cs.pos] : 0;
-    const bool inject =
-        anchored ? (p == 0 && matched == 0) : (matched == 0 && p <= len);
-    if (inject) state |= start_bits;
-    const uint32_t* cr = crows;
-    if (U > 1) cr += (int64_t)urow[p * us.pos] * I;
+    // the char at p, 0 at the EOS slot (p == len) and past the matrix
+    const int32_t cur = p < last ? rc.at(p) : 0;
+    if (!anchored || p == 0) state |= g.start_bits;
+    const uint32_t* cr = g.crows;
+    if (g.U > 1) {
+      const bool al = alnum_of(t, cur);
+      cr += variant(t, p == 0, prev, cur, al_prev, al) * g.I;
+      al_prev = al;
+    }
     uint32_t closed = 0;
-    for (int i = 0; i < I; ++i) {
-      if ((state >> i) & 1u) closed |= cr[i];
+    for (uint32_t b = state; b != 0u; b &= b - 1) closed |= cr[__ffs(b) - 1];
+    if (closed & g.end_bits) {  // matched only ORs: the result is final
+      matched = true;
+      break;
     }
-    matched |= (closed & end_bits) != 0u;
-    if (matched) break;  // matched only ORs: the result is final
-    if (cur == 0) {  // the sentinel consumes nothing
-      state = 0;
-      continue;
-    }
-    uint32_t pred = (uint32_t)mrow[pc * cs.pos];
-    for (int k = 0; k < n_pairs; ++k) {
-      if (cur == (int32_t)pairs[2 * k + 1]) pred |= 1u << pairs[2 * k];
-    }
-    if (cur != 10) pred |= any_bits;
-    pred |= anynl_bits;
-    const uint32_t fire = closed & pred;
     uint32_t next = 0;
-    for (int i = 0; i < I; ++i) {
-      if ((fire >> i) & 1u) next |= nrows[i];
+    if (cur != 0) {  // the sentinel (or a NUL char) consumes nothing
+      for (uint32_t b = closed & pred_bits(g, t, cur); b != 0u; b &= b - 1) {
+        next |= g.nrows[__ffs(b) - 1];
+      }
     }
     state = next;
+    if (anchored && state == 0u) break;  // no injection after p = 0
+    prev = cur;
   }
   out[row] = matched ? 1 : 0;
 }
@@ -116,22 +102,28 @@ nfa_bits(const int32_t* __restrict__ chars, const int32_t* __restrict__ membw,
 
 extern "C" {
 
-// chars, membw: int32 [N, L] with element strides (c_row, c_pos), the
-// same for both; uid: int32 [N, L + 1] with strides (u_row, u_pos), read
-// only when the program has several closure variants (U > 1; else null);
-// lengths: int32 [N]; prog: int32 table of prog_len entries (layout above);
-// out: uint8 [N] (0/1).
-int cs_nfa_bits(const void* chars, const void* membw, int64_t c_row,
-                int64_t c_pos, const void* uid, int64_t u_row, int64_t u_pos,
-                const void* lengths, const void* prog, int prog_len,
+// chars: int32 [N, L] row-major; lengths: int32 [N]; prog: int32 table of
+// prog_len entries and ctab: int32 char table of ctab_len entries (layouts
+// in nfa_chars.cuh); bmp: uint32 [65536 + 2048]; out: uint8 [N] (0/1).
+int cs_nfa_bits(const void* chars, const void* lengths, const void* prog,
+                int prog_len, const void* ctab, int ctab_len, const void* bmp,
                 int64_t N, int64_t L, int anchored, void* out, void* stream) {
   if (N <= 0) return (int)cudaGetLastError();
-  if (prog_len > MAX_PROG || L <= 0) return (int)cudaErrorInvalidValue;
+  if (prog_len > MAX_PROG || prog_len < HDR || ctab_len < HEAD + 3 || L <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const unsigned grid = (unsigned)((N + THREADS - 1) / THREADS);
-  nfa_bits<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)chars, (const int32_t*)membw, Strides{c_row, c_pos},
-      (const int32_t*)uid, Strides{u_row, u_pos}, (const int32_t*)lengths,
-      (const int32_t*)prog, prog_len, N, L, anchored, (uint8_t*)out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const auto* c = (const int32_t*)chars;
+  const auto* n = (const int32_t*)lengths;
+  const auto* pg = (const int32_t*)prog;
+  const auto* ct = (const int32_t*)ctab;
+  const auto* bm = (const uint32_t*)bmp;
+  if (L % 4 == 0 && ((uintptr_t)chars & 15) == 0) {  // rows 16-byte aligned
+    nfa_bits<true><<<grid, THREADS, 0, s>>>(c, n, pg, prog_len, ct, bm, N, L, anchored, (uint8_t*)out);
+  } else {
+    nfa_bits<false><<<grid, THREADS, 0, s>>>(c, n, pg, prog_len, ct, bm, N, L, anchored, (uint8_t*)out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -26,24 +26,14 @@
 //   Rcap matches or once begin > len.  A row walks ~len plus the lengths
 //   of its matches, where the round loop walked len - begin every round.
 //
-// The predicates come from the chars, not from per-position planes:
-//   memb(c)  the class bits of c (memb_B ^ memb_M of each class holding
-//            c): a 128-entry table in shared memory for ASCII, the
-//            program's 64K-entry table in device memory (L2-resident) for
-//            the rest of the BMP, and the classes' explicit ranges above
-//            0xFFFF (builtin classes never match there)
-//   pred(c)  memb(c) | CHAR pair bits | ANY (c != '\n') | ANYNL; 0 at c == 0
-//   uid(p)   ctx_map[BOS | PREV_NL | EOS | CUR_NL | WB] from the chars at
-//            p - 1 and p (0 outside the row) and their alnum flags (ASCII
-//            set in shared memory, BMP bits in device memory, none above),
-//            read only for programs with several closure variants
-// The program table is K2's (csrc/nfa_bits.cu):
-//   [U, I, start, end, any, anynl, n_pairs,
-//    crows[U*I], nrows[I], (inst, char) pairs[2*n_pairs]]
-// and the char table (regex/nfa_bits.py::NFABits.char_table):
-//   [memb[128], alnum[4], ctx_map[32],
-//    memb_B, n_cls, rmax, memb_M[n_cls], lo[n_cls*rmax], hi[n_cls*rmax]]
-// whose first CT_FIXED words are copied to shared memory by each block.
+// The predicates and closure variants come from the chars, not from
+// per-position planes (nfa_chars.cuh, shared with K2 and K2b): pred(c) is
+// one shared-memory word for an ASCII char, memb(c) reads the program's
+// 64K-entry table (L2-resident) in the rest of the BMP and the classes'
+// explicit ranges above it, and uid(p) is ctx_map[ctx] of the chars at
+// p - 1 and p, read only for programs with several closure variants.
+// The program table is K2's (nfa_chars.cuh, regex/nfa_bits.py), the char
+// tables NFABits.char_table and memb_bmp (regex/nfa_chars.py, W = 1).
 //
 // The begin bitmap has ceil((L + 1) / 32) words a row.  It lives in a
 // word-major scratch plane [words, N] (a register array would need a
@@ -66,85 +56,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "nfa_chars.cuh"
+
 namespace {
 
+using namespace nfa_chars;
+
 constexpr int THREADS = 128;
-constexpr int MAX_U = 32;
-constexpr int MAX_I = 32;
-constexpr int HDR = 7;
-constexpr int MAX_PROG = HDR + MAX_U * MAX_I + MAX_I + 2 * MAX_I;
-// the char table's shared part: memb of chars 0..127, the ASCII alnum set
-// (4 words), ctx_map (32 words); then, in device memory only, the classes
-constexpr int CT_ALNUM = 128;
-constexpr int CT_CTX = 132;
-constexpr int CT_FIXED = 164;
-constexpr int BMP = 65536;  // memb of each BMP char, then its alnum bits
-
-struct Prog {
-  int U, I, n_pairs;
-  uint32_t start_bits, end_bits, any_bits, anynl_bits;
-  const uint32_t* crows;
-  const uint32_t* nrows;
-  const uint32_t* pairs;
-  const uint32_t* crows_t;  // [U*I]: bit i of row k is bit k of crows[i]
-  const uint32_t* nrows_t;  // [I]: the same for nrows
-  const uint32_t* pred_a;   // [128]: pred(c) of each ASCII char
-};
-
-struct Chars {
-  const uint32_t* fixed;  // shared: CT_FIXED words
-  const uint32_t* bmp;    // device: memb[65536], alnum bits[2048]
-  const int32_t* cls;     // device: memb_B, n_cls, rmax, memb_M, lo, hi
-};
-
-// the program's fields over its table, already in shared memory
-__device__ __forceinline__ Prog load_prog(const uint32_t* tab,
-                                          const uint32_t* trans,
-                                          const uint32_t* pred_a) {
-  Prog g;
-  g.U = (int)tab[0];
-  g.I = (int)tab[1];
-  g.start_bits = tab[2];
-  g.end_bits = tab[3];
-  g.any_bits = tab[4];
-  g.anynl_bits = tab[5];
-  g.n_pairs = (int)tab[6];
-  g.crows = tab + HDR;
-  g.nrows = g.crows + g.U * g.I;
-  g.pairs = g.nrows + g.I;
-  g.crows_t = trans;
-  g.nrows_t = trans + g.U * g.I;
-  g.pred_a = pred_a;
-  return g;
-}
-
-__device__ __forceinline__ uint32_t memb_of(const Chars& t, int32_t c) {
-  const uint32_t u = (uint32_t)c;
-  if (u < 128u) return t.fixed[u];
-  if (u < (uint32_t)BMP) return __ldg(t.bmp + u);
-  // above the BMP (or negative): the explicit ranges, each class once
-  uint32_t m = (uint32_t)t.cls[0];
-  const int n = t.cls[1], r = t.cls[2];
-  const int32_t* M = t.cls + 3;
-  const int32_t* lo = M + n;
-  const int32_t* hi = lo + n * r;
-  for (int k = 0; k < n; ++k) {
-    for (int j = 0; j < r; ++j) {
-      if (c >= lo[k * r + j] && c <= hi[k * r + j]) {
-        m ^= (uint32_t)M[k];
-        break;
-      }
-    }
-  }
-  return m;
-}
-
-__device__ __forceinline__ bool alnum_of(const Chars& t, int32_t c) {
-  if (c <= 0) return false;
-  if (c < 128) return (t.fixed[CT_ALNUM + (c >> 5)] >> (c & 31)) & 1u;
-  if (c < BMP) return (__ldg(t.bmp + BMP + (c >> 5)) >> (c & 31)) & 1u;
-  return false;
-}
+constexpr int HEAD = head_words(1);
 
 // the offset of the closure variant at position p in the [U, I] tables,
 // from the chars at p - 1 and p (each 0 outside the row)
@@ -152,42 +71,27 @@ __device__ __forceinline__ int closure_at(const Prog& g, const Chars& t,
                                           int64_t p, int32_t prev,
                                           int32_t cur) {
   if (g.U == 1) return 0;
-  const int ctx = (p == 0 ? 1 : 0) | (prev == 10 ? 2 : 0) |
-                  (cur == 0 ? 4 : 0) | (cur == 10 ? 8 : 0) |
-                  (alnum_of(t, prev) != alnum_of(t, cur) ? 16 : 0);
-  return (int)t.fixed[CT_CTX + ctx] * g.I;
-}
-
-// the consume predicate of a char cur != 0, without the ASCII table
-__device__ __forceinline__ uint32_t pred_slow(const Prog& g, const Chars& t,
-                                              int32_t cur) {
-  uint32_t pred = memb_of(t, cur);
-  for (int k = 0; k < g.n_pairs; ++k) {
-    if (cur == (int32_t)g.pairs[2 * k + 1]) pred |= 1u << g.pairs[2 * k];
-  }
-  if (cur != 10) pred |= g.any_bits;
-  return pred | g.anynl_bits;
-}
-
-__device__ __forceinline__ uint32_t pred_bits(const Prog& g, const Chars& t,
-                                              int32_t cur) {
-  return (uint32_t)cur < 128u ? g.pred_a[cur] : pred_slow(g, t, cur);
+  return variant(t, p == 0, prev, cur, alnum_of(t, prev), alnum_of(t, cur)) * g.I;
 }
 
 // one backward step at p <= len: B_{p+1} -> B_p; cur is the char at p
-// (0 at p == len), prev the char at p - 1 (0 at p == 0)
+// (0 at p == len), prev the char at p - 1 (0 at p == 0); trans holds the
+// transposed closure rows [U*I], then the transposed next rows [I] (bit i
+// of row k is bit k of crows[i] / nrows[i])
 __device__ __forceinline__ uint32_t back_step(const Prog& g, const Chars& t,
+                                              const uint32_t* trans,
                                               uint32_t B, int64_t p,
                                               int32_t prev, int32_t cur) {
   // both steps walk the set bits only, through the transposed rows:
   // { i : rows[i] & x != 0 } = OR of rows_t[k] over the bits k of x
   uint32_t t2 = g.end_bits;
   if (B != 0u && cur != 0) {
+    const uint32_t* nrows_t = trans + g.U * g.I;
     uint32_t tt = 0;
-    for (uint32_t b = B; b != 0u; b &= b - 1) tt |= g.nrows_t[__ffs(b) - 1];
+    for (uint32_t b = B; b != 0u; b &= b - 1) tt |= nrows_t[__ffs(b) - 1];
     t2 |= tt & pred_bits(g, t, cur);
   }
-  const uint32_t* ct = g.crows_t + closure_at(g, t, p, prev, cur);
+  const uint32_t* ct = trans + closure_at(g, t, p, prev, cur);
   uint32_t nb = 0;
   for (uint32_t b = t2; b != 0u; b &= b - 1) nb |= ct[__ffs(b) - 1];
   return nb;
@@ -241,15 +145,14 @@ struct Args {
 
 __global__ void __launch_bounds__(THREADS) span_all(const Args a) {
   __shared__ uint32_t tab[MAX_PROG];
-  __shared__ uint32_t fixed[CT_FIXED];
+  __shared__ uint32_t head[HEAD];
   __shared__ uint32_t trans[MAX_U * MAX_I + MAX_I];
-  __shared__ uint32_t pred_a[128];
   for (int i = threadIdx.x; i < a.prog_len; i += THREADS) tab[i] = (uint32_t)a.prog[i];
-  for (int i = threadIdx.x; i < CT_FIXED; i += THREADS) fixed[i] = (uint32_t)a.ctab[i];
+  for (int i = threadIdx.x; i < HEAD; i += THREADS) head[i] = (uint32_t)a.ctab[i];
   __syncthreads();
-  const Prog g = load_prog(tab, trans, pred_a);
-  const Chars t{fixed, a.bmp, a.ctab + CT_FIXED};
-  // the transposed closure and next rows, and the ASCII predicates
+  const Prog g = load_prog(tab);
+  const Chars t = chars_of<1>(head, a.bmp, a.ctab);
+  // the transposed closure and next rows
   for (int e = threadIdx.x; e < (g.U + 1) * g.I; e += THREADS) {
     const uint32_t* src = e < g.U * g.I ? g.crows + (e / g.I) * g.I : g.nrows;
     const int k = e % g.I;
@@ -257,7 +160,6 @@ __global__ void __launch_bounds__(THREADS) span_all(const Args a) {
     for (int i = 0; i < g.I; ++i) v |= ((src[i] >> k) & 1u) << i;
     trans[e] = v;
   }
-  for (int c = threadIdx.x; c < 128; c += THREADS) pred_a[c] = pred_slow(g, t, c);
   __syncthreads();
 
   const int64_t N = a.N, L = a.L;
@@ -274,7 +176,7 @@ __global__ void __launch_bounds__(THREADS) span_all(const Args a) {
     int32_t cur = 0;  // the char at hi: hi == len, or hi == L past the matrix
     for (int64_t p = hi; p >= w; --p) {
       const int32_t prev = p > 0 ? crow[p - 1] : 0;
-      B = back_step(g, t, B, p, prev, cur);
+      B = back_step(g, t, trans, B, p, prev, cur);
       if (B & g.start_bits) word |= 1u << (p & 31);
       if ((p & 31) == 0 || p == w) {
         a.scratch[(p >> 5) * N + row] = word;
@@ -322,7 +224,8 @@ extern "C" {
 
 // chars: int32 [N, L] row-major; lengths, start_pos: int32 [N]; validity:
 // uint8 [N]; prog: int32 table of prog_len entries and ctab: int32 char
-// table of ctab_len entries (layouts above); bmp: uint32 [65536 + 2048];
+// table of ctab_len entries (layouts in nfa_chars.cuh); bmp: uint32
+// [65536 + 2048];
 // counts: int32 [N]; B, E: int32 [N, W] (W = 1 with counts_only, else
 // Rcap), -1 past a row's count (all -1 with counts_only); scratch: uint32
 // [(L + 32) / 32, N].
@@ -332,7 +235,7 @@ int cs_span_all(const void* chars, int64_t L, const void* lengths,
                 int64_t N, int Rcap, int counts_only, void* counts, void* B,
                 void* E, void* scratch, void* stream) {
   if (N <= 0) return (int)cudaGetLastError();
-  if (prog_len > MAX_PROG || ctab_len < CT_FIXED + 3 || L <= 0 || Rcap < 0 ||
+  if (prog_len > MAX_PROG || ctab_len < HEAD + 3 || L <= 0 || Rcap < 0 ||
       (L + 32) / 32 > (1 << 30)) {
     return (int)cudaErrorInvalidValue;
   }

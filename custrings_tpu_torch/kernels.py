@@ -1,11 +1,11 @@
 """Build, load and launch bookkeeping for the hand-written CUDA kernels.
 
-All kernels live in `csrc/*.cu` with a plain C interface.  At first use
-on a CUDA tensor they are compiled by `nvcc` into one shared library
-under `build/custrings_tpu_torch/` and loaded with ctypes.  The library's
-file name carries a hash of the sources, the nvcc flags and the nvcc
-path, so a change to any of them builds a new library instead of loading
-a stale one.  Nothing is built or imported when this module is imported,
+All kernels live in `csrc/*.cu` (with the headers `csrc/*.cuh`) with a
+plain C interface.  At first use on a CUDA tensor they are compiled by
+`nvcc` into one shared library under `build/custrings_tpu_torch/` and
+loaded with ctypes.  The library's file name carries a hash of the
+sources and headers, the nvcc flags and the nvcc path, so a change to any
+of them builds a new library instead of loading a stale one.  Nothing is built or imported when this module is imported,
 so the CPU tests (which have no nvcc) import every module freely.
 
 Every C entry point takes raw device pointers, ints and the current
@@ -45,6 +45,9 @@ LAUNCHES = {
     "hash": 0,
     "compact_bytes": 0,
 }
+#: scan_sum's launches by input size, counted beside LAUNCHES: over a
+#: capacity-sized input (at least 2^24 elements) or a smaller one
+SCAN_SUM_SIZES = {"capacity": 0, "rows": 0}
 
 _lib = None
 
@@ -60,9 +63,7 @@ _SIGNATURES = {
     "cs_window_bytes": ([_P, _I64, _P, _I64, _I64, _I32, _P, _P], _I32),
     "cs_window_words": ([_P, _I64, _P, _I64, _I64, _P, _P], _I32),
     # nfa_bits.cu
-    "cs_nfa_bits": (
-        [_P, _P, _I64, _I64, _P, _I64, _I64, _P, _P, _I32, _I64, _I64, _I32, _P, _P], _I32
-    ),
+    "cs_nfa_bits": ([_P, _P, _P, _I32, _P, _I32, _P, _I64, _I64, _I32, _P, _P], _I32),
     # route.cu
     "cs_compact": ([_P, _P, _P, _I64, _I32, _P, _P], _I32),
     "cs_expand": ([_P, _P, _P, _I64, _I64, _I32, _P, _P, _P], _I32),
@@ -72,7 +73,7 @@ _SIGNATURES = {
         _I32,
     ),
     # nfa_words.cu
-    "cs_nfa_words": ([_P, _P, _P, _P, _P, _I32, _I64, _I64, _I32, _I32, _P, _P], _I32),
+    "cs_nfa_words": ([_P, _P, _P, _I32, _P, _I32, _P, _I64, _I64, _I32, _I32, _P, _P], _I32),
     # hash.cu
     "cs_hash": ([_P, _P, _I64, _P, _P], _I32),
     # compact.cu
@@ -82,8 +83,9 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, SCAN_SUM_SIZES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -98,11 +100,13 @@ def _nvcc() -> str:
 
 
 def lib_path(nvcc: str | None = None) -> str:
-    """The library's path for the current sources, flags and nvcc."""
+    """The library's path for the current sources, headers, flags and
+    nvcc."""
     h = hashlib.sha256()
     for part in [nvcc or _nvcc(), *NVCC_FLAGS]:
         h.update(part.encode() + b"\0")
-    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+    files = glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh"))
+    for src in sorted(files):
         h.update(os.path.basename(src).encode() + b"\0")
         with open(src, "rb") as f:
             h.update(f.read())

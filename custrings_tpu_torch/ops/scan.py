@@ -52,6 +52,8 @@ def _launch(x: torch.Tensor, op: int, counter: str) -> torch.Tensor:
     )
     kernels.check(err, "scan")
     kernels.LAUNCHES[counter] += 1
+    if counter == "scan_sum":
+        kernels.SCAN_SUM_SIZES["capacity" if n >= 1 << 24 else "rows"] += 1
     return out
 
 

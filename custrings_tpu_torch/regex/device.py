@@ -3,16 +3,17 @@ boolean engines.
 
 Port of `custrings_tpu/regex/device.py`: the tables (`DeviceProgram.
 __init__`, `closure_tensor`, `class_match_table`), the predicate helpers
-(`_lut128_hit`, `_class_membership`, `_ctx_bits`, `_char_pred`), the
-per-position closure variants that K2 and K2b read (`position_uid`, the
-uid half of the TPU kernels' `_pos_tables`), the vector engine
-`nfa_matches` and the chunked engine `nfa_matches_chunked` (plain torch,
-as the JAX package left them to XLA), and the span router `spans_single`
-/ `all_spans` on the span kernel (K5, one launch per call).  The tables
-are built on the host with the same numpy code and kept as CPU tensors;
-`on(name, device)` hands out a cached device copy.  The bit matchers are
-`regex/nfa_bits.py` (K2) and `regex/nfa_words.py` (K2b), the span passes
-`regex/span_bits.py`.
+(`_lut128_hit`, `_class_membership`, `_ctx_bits`, `_char_pred`) of the
+torch engines, the vector engine `nfa_matches` and the chunked engine
+`nfa_matches_chunked` (plain torch, as the JAX package left them to XLA),
+and the span router `spans_single` / `all_spans` on the span kernel (K5,
+one launch per call).  The tables are built on the host with the same
+numpy code and kept as CPU tensors; `on(name, device)` hands out a cached
+device copy.  The bit matchers are `regex/nfa_bits.py` (K2) and
+`regex/nfa_words.py` (K2b), the span passes `regex/span_bits.py`; the
+three kernels compute predicates and closure variants from the chars
+through the per-char tables of `regex/nfa_chars.py`, so no per-position
+plane is built for them.
 
 Only programs the span passes take are ported: `longest_safe` or
 `end_unique`, and at most 32 instructions.  The JAX package's other span
@@ -281,28 +282,6 @@ class DeviceProgram:
 
     def _ctx_bits(self, prev_c, cur_c, is_bos, ascii: bool = False) -> torch.Tensor:
         return self._ctx(prev_c, cur_c, self._alnum(prev_c, ascii), self._alnum(cur_c, ascii), is_bos)
-
-    def position_uid(self, chars, lengths, ascii: bool = False):
-        """int32[N, L+1]: the closure variant of each position of the char
-        matrix, EOS sentinel included, from its context bits; None for a
-        program with one closure variant (no anchors or word boundaries),
-        which always takes variant 0.  Shared by K2 and K2b."""
-        if self.closure_unique.shape[0] == 1:
-            return None
-        L = chars.shape[1]
-        dev = chars.device
-        chars = chars.to(torch.int32)
-        alnum = self._alnum(chars, ascii).to(torch.int32)
-        pos = torch.arange(L + 1, dtype=torch.int32, device=dev)[None, :]
-        lensE = lengths.to(torch.int32)[:, None]
-        cur_ok = pos < lensE
-        prev_ok = (pos > 0) & (pos - 1 < lensE)
-        F = torch.nn.functional
-        curc = torch.where(cur_ok, F.pad(chars, (0, 1)), 0)
-        prevc = torch.where(prev_ok, F.pad(chars, (1, 0))[:, : L + 1], 0)
-        al_cur = torch.where(cur_ok, F.pad(alnum, (0, 1)), 0)
-        al_prev = torch.where(prev_ok, F.pad(alnum, (1, 0))[:, : L + 1], 0)
-        return self.on("ctx_map", dev)[self._ctx(prevc, curc, al_prev, al_cur, pos == 0)]
 
     def _char_pred(self, c: torch.Tensor, ascii: bool = False) -> torch.Tensor:
         """bool[..., I]: does char c satisfy each consuming inst?  The

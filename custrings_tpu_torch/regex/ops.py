@@ -5,9 +5,11 @@ Port of `custrings_tpu/regex/ops.py`: `get_program`, `_matches`,
 `count_re`, `findall_spans`, `findall_columns`, `findall_record` and
 `replace_re` with their helpers (on `DeviceProgram.all_spans` and the
 span passes K5).  Patterns compile on the host once per process; each
-length class of the column runs at its own width, and ASCII-dominant
-columns run the packed-bit predicates on every row and re-run only their
-non-ASCII rows with the 64K tables.
+length class of the column runs at its own width.  The kernels (K2, K2b,
+K5) read the full char tables, so an unbucketed column is one call over
+all its rows; the torch engines (vector, chunked) run the packed-bit
+predicates on every row of an ASCII-dominant column and re-run only its
+non-ASCII rows with the 64K tables, as the JAX package does.
 
 The boolean matchers route each length class as the JAX package does:
 a width at or above the chunk threshold takes the chunked engine
@@ -83,7 +85,7 @@ def _matches(col: StringColumn, pattern: str, anchored: bool) -> torch.Tensor:
         if width >= thresh:
             return dp.nfa_matches_chunked(chars, nch, anchored, _chunk_size(width), ascii)
         if nfa is not None:
-            return nfa.matches(chars, nch, anchored, ascii)
+            return nfa.matches(chars, nch, anchored)
         return dp.nfa_matches(chars, nch, anchored, ascii)
 
     if col.size == 0:
@@ -91,6 +93,8 @@ def _matches(col: StringColumn, pattern: str, anchored: bool) -> torch.Tensor:
     bks = layout.length_buckets(col)
     if bks is None:
         chars, nch = layout.char_matrix(col)
+        if nfa is not None and int(chars.shape[1]) < thresh:
+            return engine(chars, nch) & col.validity  # K2 / K2b: one launch
         na = layout.row_nonascii_ids(col)
         if len(na) * 8 <= max(col.size, 1):
             m = engine(chars, nch, ascii=True)

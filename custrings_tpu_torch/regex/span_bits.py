@@ -108,7 +108,7 @@ class SpanBits:
     # -- the plain versions ----------------------------------------------
 
     def _all_plain(self, chars, lengths, validity, Rcap, start, counts_only):
-        """`all` on tensors, all rows at once: the class bits and closure
+        """`all` on tensors, all rows at once: the predicates and closure
         variants of every position from the kernel's char tables, one
         backward pass for the begin bitmap, then per round the next
         candidate (torch ops) and `_fwd_plain` from it."""
@@ -121,14 +121,14 @@ class SpanBits:
         B = torch.full((N, W), -1, dtype=torch.int32, device=dev)
         E = torch.full((N, W), -1, dtype=torch.int32, device=dev)
         active = validity.to(torch.bool) & (begin <= lens.clamp(max=L))
-        membw, uid = self.nfa._memb_plain(chars), self.nfa._uid_plane(chars, lens)
-        bits = self._back_plain(chars, lens, begin, active, membw, uid)
+        uid = self.nfa._uid_plane(chars, lens)
+        bits = self._back_plain(chars, lens, begin, active, uid)
         pos = torch.arange(L + 1, dtype=torch.int64, device=dev)
         r = 0
         while r < Rcap and bool(active.any()):
             cand = bits & (pos[None, :] >= begin[:, None])
             b0 = torch.where(active & cand.any(dim=1), cand.to(torch.int8).argmax(dim=1), -1)
-            e0 = self._fwd_plain(chars, lens, b0, membw, uid).to(torch.int64)
+            e0 = self._fwd_plain(chars, lens, b0, uid).to(torch.int64)
             hit = (b0 >= 0) & (e0 >= 0)
             counts += hit.to(torch.int32)
             if not counts_only:
@@ -139,10 +139,10 @@ class SpanBits:
             r += 1
         return counts, B, E
 
-    def _back_plain(self, chars, lens, start, work, membw, uid):
+    def _back_plain(self, chars, lens, start, work, uid):
         """bool[N, L+1]: the begin bitmap, bit p set where B_p & start != 0
         for start[row] <= p <= min(len, L) on the rows of `work` (int64
-        states, 32 bits used; membw and uid as `_all_plain` builds them),
+        states, 32 bits used; uid as `_all_plain` builds it),
         one iteration per position p = L..0.
         Positions past every row's length (B stays 0 there) and below
         every start are skipped, as the kernel's per-row bounds do."""
@@ -162,7 +162,7 @@ class SpanBits:
                 if nr:
                     t |= ((B & nr) != 0).to(torch.int64) << i
             end_ok = torch.where(p <= lens, nfa.end_bits, 0)
-            t2 = (t & nfa._pred_plain(cur, membw[:, min(p, L - 1)])) | end_ok
+            t2 = (t & nfa._pred_plain(cur)[:, 0]) | end_ok
             rows = nfa._closure_rows(uid, p, N, dev)
             B = torch.zeros_like(B)
             for i in range(nfa.I):
@@ -170,7 +170,7 @@ class SpanBits:
             bits[:, p] = ((B & nfa.start_bits) != 0) & (p <= lens) & (p >= start) & work
         return bits
 
-    def _fwd_plain(self, chars, lengths, begins, membw, uid):
+    def _fwd_plain(self, chars, lengths, begins, uid):
         """int32[N]: the last END fired after injecting the start state at
         p == begins[row] (none where begins is -1), or -1; all rows at
         once, one iteration per position from the first injection until
@@ -194,5 +194,5 @@ class SpanBits:
             state = torch.where(b0 == p, state | nfa.start_bits, state)
             closed = nfa._or_rows(state, nfa._closure_rows(uid, p, N, dev))
             e0 = torch.where((closed & nfa.end_bits) != 0, p, e0)
-            state = nfa._or_rows(closed & nfa._pred_plain(cur, membw[:, pc]), nfa.nrows)
+            state = nfa._or_rows(closed & nfa._pred_plain(cur)[:, 0], nfa.nrows)
         return e0.to(torch.int32)

@@ -2,6 +2,7 @@
 
     python3 profile_slice.py               # after chip_smoke.py has passed
     python3 profile_slice.py --all-spans   # the all_spans part alone
+    python3 profile_slice.py --matchers    # the K2 / K2b matchers alone
 
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
 "THE"), dictionary_encode, the growing and shrinking replace_literal
@@ -11,20 +12,23 @@ findall_record(#\\w+), replace_re((\\w+)@(\\w+))) and hash on a fresh
 matchers phase (contains_re of ERR, ISO and MONTH on the 2^20 log rows of
 chip_smoke.make_logs(), of BIG on their first 65,536, of ERR on the 2,048
 long rows): the wall time without the profiler, and under torch.profiler
-the wall time, the summed device time and the twelve device items that
-took longest.  Then the parts of contains_re(#\\w+) and contains_re(ERR)
+the wall time, the summed device time, the twelve device items that took
+longest and the peak device memory above the op's input column.  Then the parts of contains_re(#\\w+) and contains_re(ERR)
 timed alone with CUDA events: the char matrix (for #\\w+ on the streaming
-view and K1 window routes), the per-position tables and the K2 / K2b
-wrapper; and K2b's planes and kernel by program on the log rows.  Then
-the three ops in sequence on a fresh column on each padded-view route (the
+view and K1 window routes) and the K2 wrapper; and the K2b wrapper by
+program on the log rows (ERR, ERR without its word boundaries, ISO,
+MONTH), each kernel unanchored and anchored, with 16-byte and with 4-byte
+char loads (`--matchers` runs the ops on K2 and K2b and these parts
+alone).  Then the three ops in sequence on a fresh column on each padded-view route (the
 streaming view the slice takes at 1M rows, and the K1 window view),
 alternated stream, window, window, stream.  Last, DeviceProgram.all_spans
 per call on the tweet rows' [1M, 320] char matrix for each span pattern
 of chip_smoke.py's span_all case, counts only and with full planes: CUDA
 event ms, peak device memory above the inputs, and the kernel launches
-of one call.  It calls only what the span ops call, so it times an
-earlier tree's all_spans the same way, with that tree first on sys.path.
-One JSON line each.
+of one call.  The all_spans part and the matchers call only the package's
+entry points, so they time an earlier tree's package the same way, with
+that tree's package first on sys.path.  One JSON line each, after one
+naming the package's directory.
 """
 
 from __future__ import annotations
@@ -43,6 +47,22 @@ def _timed(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def _kernel_ms(torch, nfa, chars, nch):
+    """The K2 / K2b wrapper's ms, unanchored and anchored, on the char
+    matrix (16-byte loads where its width is divisible by 4) and on a copy
+    whose rows are not 16-byte aligned (4-byte loads), whose results must
+    be equal."""
+    chars4 = cs._unaligned(torch, chars)
+    out = {}
+    for anchored in (False, True):
+        mode = "anchored" if anchored else "unanchored"
+        if not torch.equal(nfa.matches(chars, nch, anchored), nfa.matches(chars4, nch, anchored)):
+            raise AssertionError(f"{mode}: the two load forms disagree")
+        out[f"{mode}_ms"] = cs._time_ms(torch, lambda: nfa.matches(chars, nch, anchored))
+        out[f"{mode}_4byte_loads_ms"] = cs._time_ms(torch, lambda: nfa.matches(chars4, nch, anchored))
+    return out
 
 
 def all_spans_part(torch, strs) -> None:
@@ -82,6 +102,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA card", file=sys.stderr)
         return 1
+    import custrings_tpu_torch
+
+    print(json.dumps({"package": custrings_tpu_torch.__path__[0]}), flush=True)
     if "--all-spans" in sys.argv[1:]:
         all_spans_part(torch, cs.make_corpus(cs.ROWS, seed=0))
         print(cs._nvidia_smi(), flush=True)
@@ -90,10 +113,12 @@ def main() -> int:
     from custrings_tpu_torch.ops import hash, layout, modify, split, unique
     from custrings_tpu_torch.regex import ops as rx
 
+    matchers = "--matchers" in sys.argv[1:]
     strs = cs.make_corpus(cs.ROWS, seed=0)
     logs = cs.make_logs(cs.LOG_ROWS, seed=2)
-    corpora = {"tweets": strs, "logs": logs, "logs_big": logs[: cs.BIG_ROWS],
-               "long": cs.make_long_logs(cs.LONG_ROWS, seed=3)}
+    corpora = {"tweets": strs, "logs": logs, "logs_big": logs[: cs.BIG_ROWS]}
+    if not matchers:
+        corpora["long"] = cs.make_long_logs(cs.LONG_ROWS, seed=3)
 
     def fresh(src="tweets"):
         return column.from_host_strings(corpora[src], "cuda")
@@ -115,6 +140,8 @@ def main() -> int:
         "contains_re BIG (vector)": ("logs_big", lambda c: rx.contains_re(c, cs.BIG)),
         "contains_re ERR (chunked)": ("long", lambda c: rx.contains_re(c, cs.ERR)),
     }
+    if matchers:
+        ops = {k: v for k, v in ops.items() if k == "contains_re" or k.endswith("(K2b)")}
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):
         torch.ones(1, device="cuda").sum()
@@ -124,17 +151,21 @@ def main() -> int:
         _, cold = _timed(torch, lambda: fn(c))
         c = fresh(src)
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with profile(activities=acts) as prof:
             fn(c)
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
         ka = prof.key_averages()
         cuda = torch.autograd.DeviceType.CUDA
         dev_ms = sum(e.self_device_time_total for e in ka if e.device_type == cuda) / 1e3
         top = sorted(ka, key=lambda e: -e.self_device_time_total)[:12]
         print(json.dumps({
             "op": name, "wall_ms": cold, "wall_ms_profiled": wall, "device_ms": dev_ms,
+            "peak_bytes_above_inputs": peak,
             "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in top],
         }), flush=True)
 
@@ -142,47 +173,36 @@ def main() -> int:
     width = layout.max_row_bytes(col)
     na = torch.from_numpy(layout.row_nonascii_ids(col)).cuda()
     chars, nch = layout.char_matrix(col, width)
-    nfa = rx._get_nfa(cs.PATTERN)
-    membw, uid = nfa._pos_tables(chars, nch, True)
     print(json.dumps({
         "part": "contains_re",
         "char_matrix_stream_ms": cs._time_ms(
             torch, lambda: layout._char_matrix_hybrid(col, None, na, width, True)),
         "char_matrix_window_ms": cs._time_ms(
             torch, lambda: layout._char_matrix_hybrid(col, None, na, width, False)),
-        "pos_tables_ms": cs._time_ms(torch, lambda: nfa._pos_tables(chars, nch, True)),
-        "nfa_wrapper_ms": cs._time_ms(
-            torch, lambda: nfa._matches_bits(chars, nch, membw, uid, False)),
+        **_kernel_ms(torch, rx._get_nfa(cs.PATTERN), chars, nch),
     }), flush=True)
-    del col, chars, nch, membw, uid
+    del col, chars, nch
     col = fresh("logs")
     lw = layout.max_row_bytes(col)
     na = torch.from_numpy(layout.row_nonascii_ids(col)).cuda()
     chars, nch = layout.char_matrix(col, lw)
-    nfa = rx._get_nfa(cs.ERR)
-    membw, uid = nfa._pos_tables(chars, nch, True)
     print(json.dumps({
         "part": "contains_re ERR (K2b)",
         "char_matrix_ms": cs._time_ms(torch, lambda: layout._char_matrix_hybrid(
             col, None, na, lw, layout._use_stream_view(col, lw))),
-        "pos_tables_ms": cs._time_ms(torch, lambda: nfa._pos_tables(chars, nch, True)),
-        "nfa_wrapper_ms": cs._time_ms(
-            torch, lambda: nfa._matches_words(chars, nch, membw, uid, False)),
     }), flush=True)
     # K2b by program on the same rows: the log filters, and ERR without
-    # its word boundaries (one closure variant, no uid plane)
-    for pat in (cs.ERR, cs.ERR.replace(r"\b", ""), cs.ISO, cs.MONTH):
+    # its word boundaries (one closure variant)
+    for pat in (cs.ERR, cs.ERR_NB, cs.ISO, cs.MONTH):
         nfa = rx._get_nfa(pat)
-        membw, uid = nfa._pos_tables(chars, nch, True)
         print(json.dumps({
             "part": "K2b by program", "pattern": pat, "insts": nfa.I, "W32": nfa.W32, "U": nfa.U,
-            "pos_tables_ms": cs._time_ms(torch, lambda: nfa._pos_tables(chars, nch, True)),
-            "unanchored_ms": cs._time_ms(
-                torch, lambda: nfa._matches_words(chars, nch, membw, uid, False)),
-            "anchored_ms": cs._time_ms(
-                torch, lambda: nfa._matches_words(chars, nch, membw, uid, True)),
+            **_kernel_ms(torch, nfa, chars, nch),
         }), flush=True)
-    del col, chars, nch, membw, uid
+    del col, chars, nch
+    if matchers:
+        print(cs._nvidia_smi(), flush=True)
+        return 0
 
     # the slice's ops in sequence on each padded-view route (the streaming
     # view, as the slice takes it at 1M rows, and the K1 window view),

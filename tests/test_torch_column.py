@@ -135,3 +135,24 @@ def test_native_source_lies_inside_the_port():
         assert b"PyInit_fastcolumn" in f.read() and b"PyInit_fastcolumn" in g.read()
     if native.load() is not None:
         assert native.load().unflatten(*native.load().flatten(["ab", None, ""])[:3], 3) == ["ab", None, ""]
+
+
+def test_kernel_library_name_follows_the_headers(tmp_path, monkeypatch):
+    """kernels.lib_path hashes csrc/*.cuh as well as csrc/*.cu, so an edited
+    header builds a new library instead of loading a stale one (nvcc is
+    passed by name: no toolchain is needed)."""
+    import os
+
+    from custrings_tpu_torch import kernels
+
+    assert os.path.isfile(os.path.join(kernels.CSRC, "nfa_chars.cuh"))
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("// v1\n")
+    monkeypatch.setattr(kernels, "CSRC", str(tmp_path))
+    first = kernels.lib_path("nvcc")
+    assert kernels.lib_path("nvcc") == first
+    (tmp_path / "k.cuh").write_text("// v2\n")
+    second = kernels.lib_path("nvcc")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\nint x;\n')
+    assert kernels.lib_path("nvcc") not in (first, second)

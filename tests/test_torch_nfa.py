@@ -85,8 +85,7 @@ def test_matches_bits_vs_pallas_and_re(monkeypatch, pattern, anchored):
     assert chars.shape[1] == 128  # the smallest width bucket: interpret mode stays quick
     nfa = trx._get_nfa(pattern)
     want_p = np.asarray(PallasNFA(jrx.get_program(pattern))._matches_bits(jchars, jnch, anchored, False))
-    membw, uid = nfa._pos_tables(chars, nch, False)
-    got = nfa._matches_bits(chars, nch, membw, uid, anchored).numpy()
+    got = nfa._matches_bits(chars, nch, anchored).numpy()
     np.testing.assert_array_equal(got, want_p)
     valid = np.asarray(j.validity)
     assert (got & valid).tolist() == _oracle(pattern, ROWS, anchored)
@@ -94,6 +93,8 @@ def test_matches_bits_vs_pallas_and_re(monkeypatch, pattern, anchored):
 
 @pytest.mark.parametrize("pattern", [r"#\w+", r"\bthe\b", r"^ab"])
 def test_ascii_route_equals_general_route(pattern):
+    """On ASCII rows the torch engine's ASCII route (packed-bit
+    predicates) equals K2, which reads the full char tables."""
     strs = [s for s in ROWS if s is None or s.isascii()]
     t, _ = _pair(strs)
     from custrings_tpu_torch.ops import layout
@@ -102,8 +103,8 @@ def test_ascii_route_equals_general_route(pattern):
     nfa = trx._get_nfa(pattern)
     for anchored in (False, True):
         np.testing.assert_array_equal(
-            nfa.matches(chars, nch, anchored, True).numpy(),
-            nfa.matches(chars, nch, anchored, False).numpy(),
+            trx.get_program(pattern).nfa_matches(chars, nch, anchored, True).numpy(),
+            nfa.matches(chars, nch, anchored).numpy(),
         )
 
 

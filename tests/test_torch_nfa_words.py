@@ -77,8 +77,7 @@ def test_matches_words_vs_pallas_f32_and_re(pattern, anchored):
     assert dp.I > nfa_bits.MAX_BITS_INSTS and nfa_words.pallas_supported(dp)
     nfa = trx._get_nfa(pattern)
     assert isinstance(nfa, nfa_words.NFAWords)
-    membw, uid = nfa._pos_tables(chars, nch, False)
-    got = nfa._matches_words(chars, nch, membw, uid, anchored).numpy()
+    got = nfa._matches_words(chars, nch, anchored).numpy()
     want_f32 = np.asarray(PallasNFA(jdp)._matches_f32(jchars, jnch, anchored, False))
     np.testing.assert_array_equal(got, want_f32)
     np.testing.assert_array_equal(got, np.asarray(jdp.nfa_matches(jchars, jnch, anchored)))
@@ -90,12 +89,19 @@ def test_matches_words_vs_pallas_f32_and_re(pattern, anchored):
 @pytest.mark.parametrize("ascii", [False, True])
 @pytest.mark.parametrize("pattern", [r"[^o]{3,40}\b\w+", CS.ERR, CS.ISO])
 def test_pos_tables_equal_pallas(pattern, ascii):
+    """K2b's per-char tables, expanded per position by the plain helpers
+    (`_memb_plain`, `_uid_plane`), equal the planes the Pallas kernel is
+    fed (`PallasNFA._pos_tables`: W32 membership words, NCCLASS lanes past
+    word 0, and the closure variants), on ASCII rows against its ASCII
+    route and on every row against its 64K-table route."""
     strs = [s for s in ROWS if s is None or s.isascii()] if ascii else ROWS
     t, j = _pair(strs)
     jchars, jnch, chars, nch = _mats(j)
-    membw, uid = trx._get_nfa(pattern)._pos_tables(chars, nch, ascii)
+    nfa = trx._get_nfa(pattern)
+    assert isinstance(nfa, nfa_words.NFAWords) and nfa.W32 > 1
     jm, ju = PallasNFA(jrx.get_program(pattern))._pos_tables(jchars, jnch, ascii)
-    np.testing.assert_array_equal(membw.numpy().astype(np.int64) & 0xFFFFFFFF, np.asarray(jm).astype(np.int64))
+    np.testing.assert_array_equal(nfa._memb_plain(chars).numpy(), np.asarray(jm).astype(np.int64))
+    uid = nfa._uid_plane(chars, nch)
     if uid is None:
         assert (np.asarray(ju) == 0).all()
     else:
@@ -159,6 +165,42 @@ def test_contains_and_match_routes(name, pattern):
     _route_parity(name, pattern)
 
 
+#: rows with non-ASCII (BMP and astral), null and empty rows for the
+#: kernel routes: few enough in the first column that the torch engines
+#: would take their ASCII pass there, most rows in the second
+_ODD = ["naïve timeout", "🎉 timeout🎉", "fatal: ошибка", "#日本 #x_1", None, "", "𝔘 error 𝔘", "\n#a"]
+KERNEL_COLUMNS = {
+    "ascii_heavy": [s and CS._cut(s, 120) for s in CS.make_logs(56, seed=9)] + _ODD,
+    "mostly_nonascii": _ODD * 3 + ["plain error #tag"],
+}
+
+
+@pytest.mark.parametrize("name", list(KERNEL_COLUMNS))
+@pytest.mark.parametrize("pattern", [r"#\w+", r"\btimeout\b", CS.ERR, CS.ISO])
+def test_kernel_routes_make_one_engine_call(monkeypatch, name, pattern):
+    """contains_re / match_re on the K2 and K2b routes call the engine once
+    over all rows of an unbucketed column, whatever its non-ASCII share
+    (the kernels read the full char tables), and equal the JAX package."""
+    strs = KERNEL_COLUMNS[name]
+    t, j = _pair(strs)
+    assert jlayout.length_buckets(j) is None
+    nfa = trx._get_nfa(pattern)
+    cls, meth = (nfa_bits.NFABits, "_matches_bits") if nfa.I <= 32 else (nfa_words.NFAWords, "_matches_words")
+    assert isinstance(nfa, cls)
+    calls = []
+    real = getattr(cls, meth)
+
+    def counted(self, chars, *a, **k):
+        calls.append(int(chars.shape[0]))
+        return real(self, chars, *a, **k)
+
+    monkeypatch.setattr(cls, meth, counted)
+    for fn_t, fn_j in ((trx.contains_re, jrx.contains_re), (trx.match_re, jrx.match_re)):
+        calls.clear()
+        np.testing.assert_array_equal(fn_t(t, pattern).numpy(), np.asarray(fn_j(j, pattern)))
+        assert calls == [len(strs)]
+
+
 @pytest.mark.parametrize("name", ["ascii_heavy", "mostly_nonascii", "bucketed"])
 @pytest.mark.parametrize("pattern", [r"\btimeout\b", CS.ERR])
 def test_contains_and_match_chunked_route(monkeypatch, name, pattern):
@@ -190,8 +232,8 @@ def smoke_sets():
 @pytest.mark.parametrize("set_name", ["logs", "logs_big", "long"])
 def test_chip_smoke_matcher_routes(smoke_sets, set_name):
     """Each matcher set of chip_smoke.py takes the engine it is there to
-    drive (MATCHER_ROUTES, as _RouteLog records it) and agrees with Python
-    `re` on every row."""
+    drive (MATCHER_ROUTES, as _RouteLog records it), K2b in one call over
+    all rows, and agrees with Python `re` on every row."""
     [(_, strs, filters)] = [s for s in smoke_sets if s[0] == set_name]
     t = tcol.from_host_strings(strs, "cpu")
     for _, pattern in filters:
@@ -199,4 +241,6 @@ def test_chip_smoke_matcher_routes(smoke_sets, set_name):
             with CS._RouteLog() as log:
                 got = fn(t, pattern)
             assert log.engines == CS.MATCHER_ROUTES[set_name]
+            if set_name == "logs":
+                assert [(c["rows"], c["launches"]) for c in log.calls] == [(len(strs), 0)]  # plain walk
             assert got.tolist() == _oracle(pattern, strs, anchored)
