@@ -475,7 +475,6 @@ def _kernel_phase(torch, col, width):
     chars, nch = layout.char_matrix(col, width)
     N, L = chars.shape
     nfa = rx._get_nfa(PATTERN)
-    chars4 = _unaligned(torch, chars)
     keep, k0, live, dist = _route_inputs(torch, col, width)
     k0_first = cumsum0(first)
     out_cap = col.size * width
@@ -535,10 +534,7 @@ def _kernel_phase(torch, col, width):
            lambda: nfa._matches_plain(chars, nch, False)),
           (f"{PATTERN} anchored [{n},{width}]",
            lambda: nfa._matches_bits(chars, nch, True),
-           lambda: nfa._matches_plain(chars, nch, True)),
-          (f"{PATTERN} unanchored [{n},{width}], rows not 16-byte aligned (4-byte loads)",
-           lambda: nfa._matches_bits(chars4, nch, False),
-           lambda: nfa._matches_plain(chars4, nch, False))],
+           lambda: nfa._matches_plain(chars, nch, True))],
          _walk(torch, 4 + 1, zero, k2_end), None),
         ("span_all", "csrc/spans.cu",
          "custrings_tpu/regex/pallas_spans.py:251 and :266 (SpanBits.single, looped by "
@@ -590,16 +586,6 @@ def _walk_words(torch, nfa, first, end):
     return npos * 4 + 5 * first.shape[0], npos * (8 + 6 * nfa.W32)
 
 
-def _unaligned(torch, chars):
-    """A copy of the char matrix one element past a 16-byte boundary: the
-    K2/K2b kernels read its rows with 4-byte loads, where an aligned matrix
-    of a width divisible by 4 takes 16-byte loads."""
-    buf = torch.empty(chars.numel() + 1, dtype=chars.dtype, device=chars.device)
-    out = buf[1:].view(chars.shape)
-    out.copy_(chars)
-    return out
-
-
 def _compact_inputs(torch, data):
     """K7's two masks over the capacity (byte is not a space; 5% kept,
     seeded), each with its K3 prefix count and the JAX callers' out_cap
@@ -621,25 +607,21 @@ def _compact_inputs(torch, data):
 def _kernel_phase_rest(torch, col, logs_col, err_starts):
     """K2b on the log rows (ERR, ISO and MONTH, unanchored and anchored;
     ERR unanchored is the headline shape; then ERR without its word
-    boundaries, and ISO read with 4-byte loads), K6 over the tweet corpus
-    and K7 over its capacity, each against its plain version."""
+    boundaries), K6 over the tweet corpus and K7 over its capacity, each
+    against its plain version."""
     from custrings_tpu_torch.ops import compact, hash, layout
     from custrings_tpu_torch.regex import ops as rx
 
     chars, nch = layout.char_matrix(logs_col)
     N, L = chars.shape
-    chars4 = _unaligned(torch, chars)
     k2b = []
     names = {ERR: "ERR", ISO: "ISO", MONTH: "MONTH", ERR_NB: "ERR without \\b"}
-    shapes = [(p, a, chars) for p in K2B_PATTERNS for a in (False, True)]
-    shapes += [(ERR_NB, False, chars), (ISO, False, chars4)]
-    for pat, anchored, ch in shapes:
+    for pat, anchored in [(p, a) for p in K2B_PATTERNS for a in (False, True)] + [(ERR_NB, False)]:
         nfa = rx._get_nfa(pat)
         mode = "anchored" if anchored else "unanchored"
-        loads = ", rows not 16-byte aligned (4-byte loads)" if ch is chars4 else ""
-        tag = f"{names[pat]} ({nfa.I} insts, W32 {nfa.W32}, U {nfa.U}) {mode} [{N},{L}]{loads}"
-        k2b.append((tag, lambda nfa=nfa, a=anchored, ch=ch: nfa._matches_words(ch, nch, a),
-                    lambda nfa=nfa, a=anchored, ch=ch: nfa._matches_plain(ch, nch, a)))
+        tag = f"{names[pat]} ({nfa.I} insts, W32 {nfa.W32}, U {nfa.U}) {mode} [{N},{L}]"
+        k2b.append((tag, lambda nfa=nfa, a=anchored: nfa._matches_words(chars, nch, a),
+                    lambda nfa=nfa, a=anchored: nfa._matches_plain(chars, nch, a)))
     # the positions K2b must read for ERR unanchored: each row up to at
     # least its leftmost match begin (Python re), the whole row where
     # nothing matches

@@ -30,10 +30,12 @@
 // row-major char matrix in place: a warp's step touches one 32-byte sector
 // per row and the row's next positions find it in L1 (1.41 ms row-major
 // against 1.50 ms on position-major copies at 1M rows x 320, whose
-// transposes cost 11.3 ms a plane; NVIDIA H100 80GB HBM3, 700 W).  With
-// the row 16-byte aligned (L % 4 == 0), each thread loads four chars at a
-// time.  A row stops at p = min(len, L), at its first match, and, anchored,
-// once its state is empty (no later injection can revive it).
+// transposes cost 11.3 ms a plane; NVIDIA H100 80GB HBM3, 700 W).  Four
+// chars a 16-byte load in place of four 4-byte loads was a wash on the
+// H100 (K2 -2% to +9%, K2b -11% to +18% by program; PERF.md), so the
+// loads stay 4-byte.  A row stops at p = min(len, L), at its first match,
+// and, anchored, once its state is empty (no later injection can revive
+// it).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,7 +49,6 @@ using namespace nfa_chars;
 constexpr int THREADS = 256;
 constexpr int HEAD = head_words(1);
 
-template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 nfa_bits(const int32_t* __restrict__ chars, const int32_t* __restrict__ lengths,
          const int32_t* __restrict__ prog, int prog_len,
@@ -61,17 +62,17 @@ nfa_bits(const int32_t* __restrict__ chars, const int32_t* __restrict__ lengths,
   const int64_t row = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (row >= N) return;
   const Prog g = load_prog(tab);
-  const Chars t = chars_of<1>(head, bmp, ctab);
+  const Chars<1> t{head, bmp, ctab};
 
   const int64_t len = lengths[row];
   const int64_t last = len < L ? len : L;
-  RowChars<VEC> rc{chars + row * L};
+  const int32_t* crow = chars + row * L;
   uint32_t state = 0;
   bool matched = false, al_prev = false;
   int32_t prev = 0;
   for (int64_t p = 0; p <= last; ++p) {
     // the char at p, 0 at the EOS slot (p == len) and past the matrix
-    const int32_t cur = p < last ? rc.at(p) : 0;
+    const int32_t cur = p < last ? crow[p] : 0;
     if (!anchored || p == 0) state |= g.start_bits;
     const uint32_t* cr = g.crows;
     if (g.U > 1) {
@@ -113,17 +114,10 @@ int cs_nfa_bits(const void* chars, const void* lengths, const void* prog,
     return (int)cudaErrorInvalidValue;
   }
   const unsigned grid = (unsigned)((N + THREADS - 1) / THREADS);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const auto* c = (const int32_t*)chars;
-  const auto* n = (const int32_t*)lengths;
-  const auto* pg = (const int32_t*)prog;
-  const auto* ct = (const int32_t*)ctab;
-  const auto* bm = (const uint32_t*)bmp;
-  if (L % 4 == 0 && ((uintptr_t)chars & 15) == 0) {  // rows 16-byte aligned
-    nfa_bits<true><<<grid, THREADS, 0, s>>>(c, n, pg, prog_len, ct, bm, N, L, anchored, (uint8_t*)out);
-  } else {
-    nfa_bits<false><<<grid, THREADS, 0, s>>>(c, n, pg, prog_len, ct, bm, N, L, anchored, (uint8_t*)out);
-  }
+  nfa_bits<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)chars, (const int32_t*)lengths, (const int32_t*)prog,
+      prog_len, (const int32_t*)ctab, (const uint32_t*)bmp, N, L, anchored,
+      (uint8_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -44,42 +44,33 @@ __host__ __device__ constexpr int head_words(int W) {
   return 128 * W + ALNUM_WORDS + CTX_WORDS;
 }
 
-struct Chars {
-  const uint32_t* pred_a;     // shared: [128 * W]
-  const uint32_t* alnum;      // shared: [4]
-  const uint32_t* ctx_map;    // shared: [32]
-  const uint32_t* memb;       // device: [65536 * W]
-  const uint32_t* alnum_bmp;  // device: [2048]
-  const int32_t* cls;         // device: memb_B[W], n_cls, rmax, memb_M, lo, hi
-};
-
-// the tables' fields: the head already in shared memory at `head`, the
-// bmp table and the char table (for its class part) in device memory
+// the tables, with W words a char: the head in shared memory, the bmp
+// table and the char table (for its class part) in device memory
 template <int W>
-__device__ __forceinline__ Chars chars_of(const uint32_t* head,
-                                          const uint32_t* bmp,
-                                          const int32_t* ctab) {
-  return Chars{head, head + 128 * W, head + 128 * W + ALNUM_WORDS, bmp,
-               bmp + (size_t)BMP * W, ctab + head_words(W)};
-}
+struct Chars {
+  const uint32_t* head;  // shared: pred_a[128 * W], alnum[4], ctx_map[32]
+  const uint32_t* bmp;   // device: memb[65536 * W], alnum bits[2048]
+  const int32_t* ctab;   // device: the char table
+};
 
 // the class words of a char outside ASCII (c >= 128, or negative)
 template <int W>
-__device__ __forceinline__ void memb_of(const Chars& t, int32_t c,
+__device__ __forceinline__ void memb_of(const Chars<W>& t, int32_t c,
                                         uint32_t (&m)[W]) {
   const uint32_t u = (uint32_t)c;
   if (u < (uint32_t)BMP) {
 #pragma unroll
-    for (int w = 0; w < W; ++w) m[w] = __ldg(t.memb + (size_t)u * W + w);
+    for (int w = 0; w < W; ++w) m[w] = __ldg(t.bmp + (size_t)u * W + w);
     return;
   }
   // above the BMP (or negative): the explicit ranges, each class once
-  const int n = t.cls[W], r = t.cls[W + 1];
-  const int32_t* M = t.cls + W + 2;
+  const int32_t* cls = t.ctab + head_words(W);  // memb_B[W], n_cls, rmax, ...
+  const int n = cls[W], r = cls[W + 1];
+  const int32_t* M = cls + W + 2;
   const int32_t* lo = M + n * W;
   const int32_t* hi = lo + n * r;
 #pragma unroll
-  for (int w = 0; w < W; ++w) m[w] = (uint32_t)t.cls[w];
+  for (int w = 0; w < W; ++w) m[w] = (uint32_t)cls[w];
   for (int k = 0; k < n; ++k) {
     for (int j = 0; j < r; ++j) {
       if (c >= lo[k * r + j] && c <= hi[k * r + j]) {
@@ -94,14 +85,14 @@ __device__ __forceinline__ void memb_of(const Chars& t, int32_t c,
 // the consume predicate of any char (0 at c == 0): pairs are the (inst,
 // char) pairs of chars >= 128, any and anynl the ANY and ANYNL words
 template <int W>
-__device__ __forceinline__ void pred_of(const Chars& t, int32_t c,
+__device__ __forceinline__ void pred_of(const Chars<W>& t, int32_t c,
                                         const uint32_t* pairs, int n_pairs,
                                         const uint32_t* any,
                                         const uint32_t* anynl,
                                         uint32_t (&pred)[W]) {
   if ((uint32_t)c < 128u) {
 #pragma unroll
-    for (int w = 0; w < W; ++w) pred[w] = t.pred_a[c * W + w];
+    for (int w = 0; w < W; ++w) pred[w] = t.head[c * W + w];
     return;
   }
   memb_of<W>(t, c, pred);
@@ -116,21 +107,23 @@ __device__ __forceinline__ void pred_of(const Chars& t, int32_t c,
   for (int w = 0; w < W; ++w) pred[w] |= (c != 10 ? any[w] : 0u) | anynl[w];
 }
 
-__device__ __forceinline__ bool alnum_of(const Chars& t, int32_t c) {
+template <int W>
+__device__ __forceinline__ bool alnum_of(const Chars<W>& t, int32_t c) {
   if (c <= 0) return false;
-  if (c < 128) return (t.alnum[c >> 5] >> (c & 31)) & 1u;
-  if (c < BMP) return (__ldg(t.alnum_bmp + (c >> 5)) >> (c & 31)) & 1u;
+  if (c < 128) return (t.head[128 * W + (c >> 5)] >> (c & 31)) & 1u;
+  if (c < BMP) return (__ldg(t.bmp + BMP * W + (c >> 5)) >> (c & 31)) & 1u;
   return false;
 }
 
 // the closure variant at a position: bos (p == 0), the chars at p - 1 and
 // p (each 0 outside the row) and their alnum flags
-__device__ __forceinline__ int variant(const Chars& t, bool bos, int32_t prev,
-                                       int32_t cur, bool al_prev,
-                                       bool al_cur) {
+template <int W>
+__device__ __forceinline__ int variant(const Chars<W>& t, bool bos,
+                                       int32_t prev, int32_t cur,
+                                       bool al_prev, bool al_cur) {
   const int ctx = (bos ? 1 : 0) | (prev == 10 ? 2 : 0) | (cur == 0 ? 4 : 0) |
                   (cur == 10 ? 8 : 0) | (al_prev != al_cur ? 16 : 0);
-  return (int)t.ctx_map[ctx];
+  return (int)t.head[128 * W + ALNUM_WORDS + ctx];
 }
 
 // K2's program table (see above)
@@ -166,34 +159,11 @@ __device__ __forceinline__ Prog load_prog(const uint32_t* tab) {
 }
 
 // the one-word predicate of a char under K2's program table
-__device__ __forceinline__ uint32_t pred_bits(const Prog& g, const Chars& t,
-                                              int32_t c) {
+__device__ __forceinline__ uint32_t pred_bits(const Prog& g,
+                                              const Chars<1>& t, int32_t c) {
   uint32_t p[1];
   pred_of<1>(t, c, g.pairs, g.n_pairs, g.any, g.anynl, p);
   return p[0];
 }
-
-// the char at p of a row read in place, for p = 0, 1, 2, ... in order:
-// one 4-byte load a position, or (VEC, the row 16-byte aligned) one
-// 16-byte load every four positions
-template <bool VEC>
-struct RowChars;
-
-template <>
-struct RowChars<false> {
-  const int32_t* row;
-  __device__ __forceinline__ int32_t at(int64_t p) { return row[p]; }
-};
-
-template <>
-struct RowChars<true> {
-  const int32_t* row;
-  int4 v;
-  __device__ __forceinline__ int32_t at(int64_t p) {
-    const int k = (int)(p & 3);
-    if (k == 0) v = *reinterpret_cast<const int4*>(row + p);
-    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-  }
-};
 
 }  // namespace nfa_chars

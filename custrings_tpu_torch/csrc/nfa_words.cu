@@ -41,8 +41,9 @@
 // Bound on the H100: device-memory bytes and load latency.  The kernel
 // reads 4 bytes of chars a position and the row's length, writes one byte
 // a row; the ops per position follow the live states.  One thread per row
-// reads its row of the row-major char matrix in place, as K2 does; with
-// the row 16-byte aligned (L % 4 == 0) it loads four chars at a time.  A
+// reads its row of the row-major char matrix in place, 4 bytes a load, as
+// K2 does (four chars a 16-byte load moved ISO by +14% to +18% and MONTH
+// by -8% to -11% on the H100, a wash over the log filters; PERF.md).  A
 // row stops at p = min(len, L), at its first match, and, anchored, once
 // its state is empty (no later injection can revive it).
 
@@ -60,7 +61,7 @@ constexpr int TAB_HDR = 4;  // U, I, W, n_pairs
 constexpr int SMEM_OPT_IN = 232448;  // 227 KB: a block's shared memory on sm_90
 constexpr int SMEM_DEFAULT = 48 * 1024;
 
-template <int W, bool VEC>
+template <int W>
 __global__ void __launch_bounds__(THREADS)
 nfa_words(const int32_t* __restrict__ chars, const int32_t* __restrict__ lengths,
           const uint32_t* __restrict__ prog, int prog_len,
@@ -75,7 +76,7 @@ nfa_words(const int32_t* __restrict__ chars, const int32_t* __restrict__ lengths
   const int64_t row = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (row >= N) return;
 
-  const Chars t = chars_of<W>(head, bmp, ctab);
+  const Chars<W> t{head, bmp, ctab};
   const int U = (int)tab[0];
   const int I = (int)tab[1];
   const int n_pairs = (int)tab[3];
@@ -89,7 +90,7 @@ nfa_words(const int32_t* __restrict__ chars, const int32_t* __restrict__ lengths
 
   const int64_t len = lengths[row];
   const int64_t last = len < L ? len : L;
-  RowChars<VEC> rc{chars + row * L};
+  const int32_t* crow = chars + row * L;
 
   uint32_t state[W], closed[W], nxt[W], pred[W];
 #pragma unroll
@@ -98,7 +99,7 @@ nfa_words(const int32_t* __restrict__ chars, const int32_t* __restrict__ lengths
   int32_t prev = 0;
   for (int64_t p = 0; p <= last; ++p) {
     // the char at p, 0 at the EOS slot (p == len) and past the matrix
-    const int32_t cur = p < last ? rc.at(p) : 0;
+    const int32_t cur = p < last ? crow[p] : 0;
     if (!anchored || p == 0) {
 #pragma unroll
       for (int w = 0; w < W; ++w) state[w] |= start[w];
@@ -151,7 +152,7 @@ nfa_words(const int32_t* __restrict__ chars, const int32_t* __restrict__ lengths
   out[row] = matched ? 1 : 0;
 }
 
-template <int W, bool VEC>
+template <int W>
 int launch(const void* chars, const void* lengths, const void* prog,
            int prog_len, const void* ctab, const void* bmp, int64_t N,
            int64_t L, int anchored, void* out, cudaStream_t stream) {
@@ -159,25 +160,15 @@ int launch(const void* chars, const void* lengths, const void* prog,
   if (smem > (size_t)SMEM_OPT_IN) return (int)cudaErrorInvalidValue;
   if (smem > (size_t)SMEM_DEFAULT) {
     cudaError_t e = cudaFuncSetAttribute(
-        nfa_words<W, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        nfa_words<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned grid = (unsigned)((N + THREADS - 1) / THREADS);
-  nfa_words<W, VEC><<<grid, THREADS, smem, stream>>>(
+  nfa_words<W><<<grid, THREADS, smem, stream>>>(
       (const int32_t*)chars, (const int32_t*)lengths, (const uint32_t*)prog,
       prog_len, (const int32_t*)ctab, (const uint32_t*)bmp, N, L, anchored,
       (uint8_t*)out);
   return (int)cudaGetLastError();
-}
-
-template <int W>
-int launch_w(const void* chars, const void* lengths, const void* prog,
-             int prog_len, const void* ctab, const void* bmp, int64_t N,
-             int64_t L, int anchored, void* out, cudaStream_t stream) {
-  if (L % 4 == 0 && ((uintptr_t)chars & 15) == 0) {  // rows 16-byte aligned
-    return launch<W, true>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, stream);
-  }
-  return launch<W, false>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, stream);
 }
 
 }  // namespace
@@ -198,14 +189,14 @@ int cs_nfa_words(const void* chars, const void* lengths, const void* prog,
   }
   cudaStream_t s = (cudaStream_t)stream;
   switch (W) {
-    case 1: return launch_w<1>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
-    case 2: return launch_w<2>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
-    case 3: return launch_w<3>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
-    case 4: return launch_w<4>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
-    case 5: return launch_w<5>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
-    case 6: return launch_w<6>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
-    case 7: return launch_w<7>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
-    default: return launch_w<8>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
+    case 1: return launch<1>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
+    case 2: return launch<2>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
+    case 3: return launch<3>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
+    case 4: return launch<4>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
+    case 5: return launch<5>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
+    case 6: return launch<6>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
+    case 7: return launch<7>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
+    default: return launch<8>(chars, lengths, prog, prog_len, ctab, bmp, N, L, anchored, out, s);
   }
 }
 

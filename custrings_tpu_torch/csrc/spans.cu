@@ -67,7 +67,7 @@ constexpr int HEAD = head_words(1);
 
 // the offset of the closure variant at position p in the [U, I] tables,
 // from the chars at p - 1 and p (each 0 outside the row)
-__device__ __forceinline__ int closure_at(const Prog& g, const Chars& t,
+__device__ __forceinline__ int closure_at(const Prog& g, const Chars<1>& t,
                                           int64_t p, int32_t prev,
                                           int32_t cur) {
   if (g.U == 1) return 0;
@@ -78,7 +78,7 @@ __device__ __forceinline__ int closure_at(const Prog& g, const Chars& t,
 // (0 at p == len), prev the char at p - 1 (0 at p == 0); trans holds the
 // transposed closure rows [U*I], then the transposed next rows [I] (bit i
 // of row k is bit k of crows[i] / nrows[i])
-__device__ __forceinline__ uint32_t back_step(const Prog& g, const Chars& t,
+__device__ __forceinline__ uint32_t back_step(const Prog& g, const Chars<1>& t,
                                               const uint32_t* trans,
                                               uint32_t B, int64_t p,
                                               int32_t prev, int32_t cur) {
@@ -99,7 +99,7 @@ __device__ __forceinline__ uint32_t back_step(const Prog& g, const Chars& t,
 
 // the last END fired after injecting the start state at b0 (0 <= b0 <= L),
 // or -1; chars read in place
-__device__ int32_t fwd_end(const Prog& g, const Chars& t,
+__device__ int32_t fwd_end(const Prog& g, const Chars<1>& t,
                            const int32_t* __restrict__ crow, int64_t len,
                            int64_t L, int64_t b0) {
   int32_t e0 = -1;
@@ -151,7 +151,7 @@ __global__ void __launch_bounds__(THREADS) span_all(const Args a) {
   for (int i = threadIdx.x; i < HEAD; i += THREADS) head[i] = (uint32_t)a.ctab[i];
   __syncthreads();
   const Prog g = load_prog(tab);
-  const Chars t = chars_of<1>(head, a.bmp, a.ctab);
+  const Chars<1> t{head, a.bmp, a.ctab};
   // the transposed closure and next rows
   for (int e = threadIdx.x; e < (g.U + 1) * g.I; e += THREADS) {
     const uint32_t* src = e < g.U * g.I ? g.crows + (e / g.I) * g.I : g.nrows;

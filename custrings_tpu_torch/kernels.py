@@ -5,8 +5,9 @@ plain C interface.  At first use on a CUDA tensor they are compiled by
 `nvcc` into one shared library under `build/custrings_tpu_torch/` and
 loaded with ctypes.  The library's file name carries a hash of the
 sources and headers, the nvcc flags and the nvcc path, so a change to any
-of them builds a new library instead of loading a stale one.  Nothing is built or imported when this module is imported,
-so the CPU tests (which have no nvcc) import every module freely.
+of them builds a new library instead of loading a stale one.  Nothing is
+built or imported when this module is imported, so the CPU tests (which
+have no nvcc) import every module freely.
 
 Every C entry point takes raw device pointers, ints and the current
 stream, launches, and returns `cudaGetLastError()`; `check()` raises on

@@ -17,9 +17,8 @@ longest and the peak device memory above the op's input column.  Then the parts 
 timed alone with CUDA events: the char matrix (for #\\w+ on the streaming
 view and K1 window routes) and the K2 wrapper; and the K2b wrapper by
 program on the log rows (ERR, ERR without its word boundaries, ISO,
-MONTH), each kernel unanchored and anchored, with 16-byte and with 4-byte
-char loads (`--matchers` runs the ops on K2 and K2b and these parts
-alone).  Then the three ops in sequence on a fresh column on each padded-view route (the
+MONTH), each unanchored and anchored (`--matchers` runs the ops on K2 and
+K2b and these parts alone).  Then the three ops in sequence on a fresh column on each padded-view route (the
 streaming view the slice takes at 1M rows, and the K1 window view),
 alternated stream, window, window, stream.  Last, DeviceProgram.all_spans
 per call on the tweet rows' [1M, 320] char matrix for each span pattern
@@ -50,19 +49,10 @@ def _timed(torch, fn):
 
 
 def _kernel_ms(torch, nfa, chars, nch):
-    """The K2 / K2b wrapper's ms, unanchored and anchored, on the char
-    matrix (16-byte loads where its width is divisible by 4) and on a copy
-    whose rows are not 16-byte aligned (4-byte loads), whose results must
-    be equal."""
-    chars4 = cs._unaligned(torch, chars)
-    out = {}
-    for anchored in (False, True):
-        mode = "anchored" if anchored else "unanchored"
-        if not torch.equal(nfa.matches(chars, nch, anchored), nfa.matches(chars4, nch, anchored)):
-            raise AssertionError(f"{mode}: the two load forms disagree")
-        out[f"{mode}_ms"] = cs._time_ms(torch, lambda: nfa.matches(chars, nch, anchored))
-        out[f"{mode}_4byte_loads_ms"] = cs._time_ms(torch, lambda: nfa.matches(chars4, nch, anchored))
-    return out
+    """The K2 / K2b wrapper's ms on the char matrix, unanchored and
+    anchored."""
+    return {f"{'anchored' if a else 'unanchored'}_ms": cs._time_ms(torch, lambda: nfa.matches(chars, nch, a))
+            for a in (False, True)}
 
 
 def all_spans_part(torch, strs) -> None:
