@@ -893,6 +893,7 @@ def _relaunched(calls_by_op):
             bad[op] = launches
     return bad
 
+
 def _matcher_oracle(sets):
     """{(set, filter, op): per-row results} from Python re (None for null
     rows)."""

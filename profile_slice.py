@@ -13,18 +13,20 @@ matchers phase (contains_re of ERR, ISO and MONTH on the 2^20 log rows of
 chip_smoke.make_logs(), of BIG on their first 65,536, of ERR on the 2,048
 long rows): the wall time without the profiler, and under torch.profiler
 the wall time, the summed device time, the twelve device items that took
-longest and the peak device memory above the op's input column.  Then the parts of contains_re(#\\w+) and contains_re(ERR)
-timed alone with CUDA events: the char matrix (for #\\w+ on the streaming
-view and K1 window routes) and the K2 wrapper; and the K2b wrapper by
-program on the log rows (ERR, ERR without its word boundaries, ISO,
-MONTH), each unanchored and anchored (`--matchers` runs the ops on K2 and
-K2b and these parts alone).  Then the three ops in sequence on a fresh column on each padded-view route (the
-streaming view the slice takes at 1M rows, and the K1 window view),
-alternated stream, window, window, stream.  Last, DeviceProgram.all_spans
-per call on the tweet rows' [1M, 320] char matrix for each span pattern
-of chip_smoke.py's span_all case, counts only and with full planes: CUDA
-event ms, peak device memory above the inputs, and the kernel launches
-of one call.  The all_spans part and the matchers call only the package's
+longest and the peak device memory above the op's input column.  Then
+the parts of contains_re(#\\w+) and contains_re(ERR) timed alone with
+CUDA events: the char matrix (for #\\w+ on the streaming view and K1
+window routes) and the K2 wrapper; and the K2b wrapper by program on the
+log rows (ERR, ERR without its word boundaries, ISO, MONTH), each
+unanchored and anchored (`--matchers` runs the ops on K2 and K2b and
+these parts alone).  Then the three ops in sequence on a fresh column on
+each padded-view route (the streaming view the slice takes at 1M rows,
+and the K1 window view), alternated stream, window, window, stream.
+Last, DeviceProgram.all_spans per call on the tweet rows' [1M, 320] char
+matrix for each span pattern of chip_smoke.py's span_all case, counts
+only and with full planes: CUDA event ms, peak device memory above the
+inputs, and the kernel launches of one call.  The all_spans part and the
+matchers call only the package's
 entry points, so they time an earlier tree's package the same way, with
 that tree's package first on sys.path.  One JSON line each, after one
 naming the package's directory.
