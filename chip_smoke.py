@@ -10,10 +10,18 @@ Phases, each printing one JSON line:
                times, the kernel's bound (the larger of its bytes over
                the card's 3.35 TB/s and its ops over 67 T op/s) and,
                where one PyTorch call computes the same function, that
-               call's time
+               call's time; K3 at every form and edge the main path gives
+               it (cumsum0, row ids, int8, lengths 1, 4097 and 8193,
+               unaligned views, a wrapping sum), each with its own bound
+     scan    — 100 back-to-back K3 calls exact against their plain
+               versions (no scratch state leaks between calls), and
+               torch.profiler showing one scan kernel per cumsum0 call
      views   — the two padded-view routes at the slice's widths: the
-               streaming view (K4c/K4e, the route the slice takes at 1M
-               rows) against the K1 window gather, compared exactly, timed
+               K1 window gather masked at the lengths (the route every
+               size takes) against the streaming view (K4c/K4e, the
+               JAX package's TPU route), compared exactly, timed; and the
+               views' entry points, which must launch no K4c, no K4e and
+               no capacity-sized K3
   3. slice   — to_device -> contains(r"#\w+") -> replace("the", "THE")
                -> nvcategory.from_strings -> keys/values, then the growing
                and shrinking replace("the", "THEE" / "T") and
@@ -497,21 +505,31 @@ def _kernel_phase(torch, col, width):
     k2_hits = nfa._matches_plain(chars, nch, False)
     first_b = spans[2][1]._all_plain(chars, nch, torch.ones_like(valid), 1, zero, False)[1][:, 0]
     k2_end = torch.where(k2_hits, first_b + 1, row_end)
+    sum_shapes, max_shapes = _scan_shapes(torch, col, lens, signed)
+    # the bytes K1 must read with the length mask: each row's first
+    # min(length, width) bytes, its start and its length
+    inside = int(lens.clamp(max=width).sum())
+    na_inside = int(lens[na].clamp(max=width).sum())
     cases = [
-        ("scan_sum", "csrc/scan.cu", "custrings_tpu/ops/pallas_scan.py:235",
-         [(f"u8[{cap}]", lambda: scan.cumsum_i32(col.data), lambda: scan._cumsum_plain(col.data)),
-          (f"i32[{n}]", lambda: scan.cumsum_i32(lens), lambda: scan._cumsum_plain(lens))],
+        ("scan_sum", "csrc/scan.cu", "custrings_tpu/ops/pallas_scan.py:235", sum_shapes,
          (cap * (1 + 4), cap), lambda: torch.cumsum(col.data, 0, dtype=torch.int32)),
-        ("scan_max", "csrc/scan.cu", "custrings_tpu/ops/pallas_scan.py:235",
-         [(f"i32[{n}]", lambda: scan.cummax_i32(signed), lambda: scan._cummax_plain(signed)),
-          (f"u8[{cap}]", lambda: scan.cummax_i32(col.data), lambda: scan._cummax_plain(col.data))],
+        ("scan_max", "csrc/scan.cu", "custrings_tpu/ops/pallas_scan.py:235", max_shapes,
          (n * (4 + 4), n), lambda: torch.cummax(signed, 0).values),
         ("window_bytes", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170",
-         [(f"u8[{na.shape[0]},{width}] non-ASCII rows", lambda: window.ragged_gather(col.data, na_starts, width),
-           lambda: window._gather_plain(col.data, na_starts, width)),
-          (f"i32[{n},{width}] (window route)", lambda: window.ragged_gather_i32(col.data, starts, width),
+         [(f"i32[{n},{width}] masked at the lengths (char matrix)",
+           lambda: window.ragged_gather_i32(col.data, starts, width, lens),
+           lambda: window._gather_plain(col.data, starts, width, lens).to(torch.int32)),
+          (f"u8[{n},{width}] masked at the lengths (padded view)",
+           lambda: window.ragged_gather(col.data, starts, width, lens),
+           lambda: window._gather_plain(col.data, starts, width, lens),
+           {"bound": (inside + 8 * n + n * width, 0)}),
+          (f"u8[{na.shape[0]},{width}] non-ASCII rows masked (decode)",
+           lambda: window.ragged_gather(col.data, na_starts, width, lens[na]),
+           lambda: window._gather_plain(col.data, na_starts, width, lens[na]),
+           {"bound": (na_inside + 8 * na.shape[0] + na.shape[0] * width, 0)}),
+          (f"i32[{n},{width}] unmasked", lambda: window.ragged_gather_i32(col.data, starts, width),
            lambda: window._gather_plain(col.data, starts, width).to(torch.int32))],
-         (na.shape[0] * (width + 4 + width), 0), None),
+         (inside + 8 * n + 4 * n * width, 0), None),
         ("window_words", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170",
          [(f"i32[{n},{(width - 64) // 4}] tails past 64", lambda: window.ragged_gather_words(col.data, starts + 64, width - 64),
            lambda: window._words_plain(col.data, starts + 64, width - 64)),
@@ -544,16 +562,122 @@ def _kernel_phase(torch, col, width):
     return _measure(torch, cases, slow=("nfa_bits",), one_plain=("span_all",))
 
 
+def _scan_shapes(torch, col, lens, signed):
+    """K3's shapes, each with its bound (every input byte read once, every
+    output written once) and, where one torch call computes the same
+    function, that call: (sum shapes, max shapes).  The first of each is
+    the headline; then the main path's cumsum0 and row-id forms, int8
+    input, lengths of 1, 4097, 8193 (one past the kernel's 8192-element
+    tile) and one not a multiple of the tile, unaligned views and a sum
+    that wraps past 2^31."""
+    from custrings_tpu_torch.ops import scan
+
+    n, cap = col.size, col.capacity
+    g = torch.Generator(device="cpu").manual_seed(1)
+    wraps = torch.randint(1 << 30, (1 << 31) - 1, (n,), generator=g, dtype=torch.int32).cuda()
+    hi = col.data >= 0x80
+    marks = torch.zeros(cap + 1, dtype=torch.int32, device=col.device)
+    marks.index_add_(0, col.offsets[:-1].to(torch.int64), torch.ones_like(lens))
+    marks = marks[:cap]
+    buf = torch.zeros(cap + 1, dtype=torch.int32, device=col.device)
+    x8 = col.data.view(torch.int8)
+
+    def plain_sum(x):
+        return torch.cumsum(x, 0, dtype=torch.int32)
+
+    def s_case(label, x, in_bytes):
+        k = x.shape[0]
+        return (f"{label} {str(x.dtype).split('.')[-1]}[{k}]", lambda: scan.cumsum_i32(x),
+                lambda: scan._cumsum_plain(x),
+                {"bound": (k * (in_bytes + 4), k), "library": lambda: plain_sum(x)})
+
+    def m_case(label, x, in_bytes):
+        k = x.shape[0]
+        return (f"{label} {str(x.dtype).split('.')[-1]}[{k}]", lambda: scan.cummax_i32(x),
+                lambda: scan._cummax_plain(x),
+                {"bound": (k * (in_bytes + 4), k), "library": lambda: torch.cummax(x, 0).values})
+
+    sums = [
+        s_case("bytes", col.data, 1),
+        s_case("lengths", lens, 4),
+        (f"cumsum0 bool[{cap}] -> i32[{cap + 1}] (non-ASCII bytes)", lambda: scan.cumsum0_i32(hi),
+         lambda: scan._cumsum0_plain(hi),
+         {"bound": (cap + 4 * (cap + 1), cap),
+          "library": lambda: torch.cumsum(hi, 0, dtype=torch.int32, out=buf[1:])}),
+        (f"row ids i32[{cap}] (row_ids_from_offsets)", lambda: scan.cumsum_row_ids(marks, n),
+         lambda: scan._row_ids_plain(marks, n), {"bound": (8 * cap, 3 * cap)}),
+        s_case("sign-extended", x8, 1),
+        s_case("unaligned view data[1:]", col.data[1:], 1),
+        s_case("unaligned view lengths[1:]", lens[1:], 4),
+        s_case("wrapping past 2^31", wraps, 4),
+        s_case("length 1", col.data[:1], 1),
+        s_case("length 4097", col.data[:4097], 1),
+        s_case("length 8193", col.data[:8193], 1),
+        s_case("not a tile multiple", col.data[:1_000_003], 1),
+    ]
+    maxes = [
+        m_case("signed", signed, 4),
+        m_case("bytes", col.data, 1),
+        (f"cummax0 i32[{n}] -> i32[{n + 1}] (split token ends)", lambda: scan.cummax0_i32(signed),
+         lambda: scan._cummax0_plain(signed), {"bound": (4 * n + 4 * (n + 1), n)}),
+        m_case("unaligned view signed[1:]", signed[1:], 4),
+        m_case("length 1", signed[:1], 4),
+        m_case("length 4097", signed[:4097], 4),
+    ]
+    return sums, maxes
+
+
+def _scan_checks(torch, col):
+    """100 back-to-back K3 calls (sum, cumsum0 and max, inputs of changing
+    length, no sync between them), each exact against its plain version,
+    so no scratch state leaks from one call to the next; and three calls
+    of cumsum0 at capacity under torch.profiler, which must show one scan
+    kernel per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from custrings_tpu_torch.ops import scan
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    sizes = torch.randint(1, 1 << 20, (100,), generator=g).tolist()
+    forms = [(scan.cumsum_i32, scan._cumsum_plain), (scan.cumsum0_i32, scan._cumsum0_plain),
+             (scan.cummax_i32, scan._cummax_plain)]
+    outs = [forms[i % 3][0](col.data[i: i + k]) for i, k in enumerate(sizes)]
+    torch.cuda.synchronize()
+    bad = [i for i, (k, got) in enumerate(zip(sizes, outs))
+           if not torch.equal(got, forms[i % 3][1](col.data[i: i + k]))]
+    hi = col.data >= 0x80
+    scan.cumsum0_i32(hi)
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            scan.cumsum0_i32(hi)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    device_kernels = {e.key: e.count for e in prof.key_averages()
+                      if e.device_type == cuda and e.self_device_time_total > 0}
+    scan_kernels = sum(c for k, c in device_kernels.items() if "scan_tiles" in k)
+    _emit({"phase": "scan checks", "back_to_back_calls": len(sizes), "mismatched_calls": bad,
+           "profiled_calls": calls, "device_kernels": device_kernels,
+           "scan_kernels_per_call": scan_kernels / calls})
+    if bad:
+        raise AssertionError(f"K3 calls that disagree with their plain version: {bad}")
+    if scan_kernels != calls:
+        raise AssertionError(f"{calls} cumsum0 calls ran {scan_kernels} scan kernels: {device_kernels}")
+
+
 def _measure(torch, cases, slow=(), one_plain=()):
     """Each case's kernel against its plain version at each shape, exactly,
     with median times; the plain walks of `slow` take 3 timed calls, those
-    of `one_plain` one (which is also the comparison's)."""
+    of `one_plain` one (which is also the comparison's).  A shape may carry
+    a fourth item, {"bound": (bytes, ops), "library": fn}, for its own
+    bound and library time."""
     out = []
     for name, source, replaces, shapes, (nbytes, nops), library in cases:
         rec = {"name": name, "route": "cuda", "source": f"custrings_tpu_torch/{source}",
                "replaces": replaces, "tolerance": "exact (torch.equal)", "shapes": [],
                "max_abs_err": 0.0}
-        for label, kern, plain in shapes:
+        for label, kern, plain, *extra in shapes:
             if name in one_plain:
                 want, plain_ms = _timed(torch, plain)
                 err = _compare(torch, f"{name} {label}", kern(), want)
@@ -562,7 +686,12 @@ def _measure(torch, cases, slow=(), one_plain=()):
                 err = _compare(torch, f"{name} {label}", kern(), plain())
                 plain_ms = _time_ms(torch, plain, reps=3 if name in slow else REPS)
             ms = _time_ms(torch, kern)
-            rec["shapes"].append({"shape": label, "ms": ms, "plain_ms": plain_ms})
+            shape = {"shape": label, "ms": ms, "plain_ms": plain_ms}
+            if extra:
+                shape["bound_ms"], shape["bound_by"] = _bound(*extra[0]["bound"])
+                lib_fn = extra[0].get("library")
+                shape["library_ms"] = _time_ms(torch, lib_fn) if lib_fn is not None else None
+            rec["shapes"].append(shape)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
         # the headline numbers are the first (main-path) shape's
         rec["ms"] = rec["shapes"][0]["ms"]
@@ -659,9 +788,10 @@ def _expanded(res):
 
 def _view_phase(torch, col, width):
     """The streaming padded view against the K1 window view at the widths
-    the slice builds at 1M rows: the full width (char matrix, K4e alone)
-    and the encode's 64- and 256-byte key prefixes (K4c then K4e); plus
-    the 64-byte key words both ways (packed view against K1b)."""
+    the slice builds at 1M rows: the full width (char matrix; the stream
+    runs K4e alone) and the encode's 64- and 256-byte key prefixes (K4c
+    then K4e); plus the 64-byte key words both ways (packed view against
+    K1b).  The window view is the route the package takes."""
     from custrings_tpu_torch.ops import array, layout, window
 
     rows = []
@@ -677,7 +807,37 @@ def _view_phase(torch, col, width):
     _compare(torch, "key words 64", kw_stream(), kw_win())
     rows.append({"view": f"key words i32[{col.size},16]", "stream_ms": _time_ms(torch, kw_stream),
                  "window_ms": _time_ms(torch, kw_win)})
-    _emit({"phase": "views", "tolerance": "exact (torch.equal)", "views": rows})
+    launches = _view_launches(torch, col, width)
+    _emit({"phase": "views", "tolerance": "exact (torch.equal)", "views": rows,
+           "entry_point_launches": launches})
+    moved = {k: launches[k] for k in ("route_compact", "route_expand", "scan_sum_capacity") if launches[k]}
+    if moved:
+        raise AssertionError(f"the views' entry points took the streaming route: {moved}")
+
+
+def _view_launches(torch, col, width):
+    """The kernel launches of the views' entry points as the main path
+    calls them (padded_view at the three widths, char_matrix, the 64- and
+    256-byte key words) on a fresh column whose row facts (non-ASCII row
+    ids, longest row) are already cached, as after the column's first op."""
+    from custrings_tpu_torch import column, kernels
+    from custrings_tpu_torch.ops import array, layout
+
+    c = column.StringColumn(col.data, col.offsets, col.validity)
+    layout.row_nonascii_ids(c)
+    layout.max_row_bytes(c)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for w in (width, 64, 256):
+        layout.padded_view(c, w)
+    layout.char_matrix(c, width)
+    array._key_words(c, 64)
+    array._key_words(c, 256)
+    torch.cuda.synchronize()
+    return {**{k: v for k, v in kernels.LAUNCHES.items() if v},
+            "route_compact": kernels.LAUNCHES["route_compact"],
+            "route_expand": kernels.LAUNCHES["route_expand"],
+            "scan_sum_capacity": kernels.SCAN_SUM_SIZES["capacity"]}
 
 
 def _category_oracle(strs):
@@ -994,6 +1154,7 @@ def main() -> int:
            "width": width, "seconds": corpus_s})
 
     recs = _kernel_phase(torch, col, width)
+    _scan_checks(torch, col)
 
     t0 = time.perf_counter()
     logs = make_logs(LOG_ROWS, seed=2)

@@ -189,27 +189,26 @@ def i32_bits(x):
 
 
 def cumsum0(sizes: torch.Tensor) -> torch.Tensor:
-    """Exclusive scan with the total appended: int32[n] -> int32[n+1] (K3)."""
-    from .ops.scan import cumsum_i32
+    """Exclusive scan with the total appended: int32[n] -> int32[n+1] (K3,
+    one launch writing the result in place)."""
+    from .ops.scan import cumsum0_i32
 
-    out = torch.zeros(sizes.shape[0] + 1, dtype=torch.int32, device=sizes.device)
-    out[1:] = cumsum_i32(sizes)
-    return out
+    return cumsum0_i32(sizes)
 
 
 def row_ids_from_offsets(offsets: torch.Tensor, capacity: int) -> torch.Tensor:
     """For each byte position j < capacity, the row that owns it; padding
     past offsets[-1] clamps to the last row.  One rows-sized scatter-add
-    of row-start marks and one capacity-sized scan (K3)."""
-    from .ops.scan import cumsum_i32
+    of row-start marks and one capacity-sized scan (K3), whose store
+    subtracts the 1 and clamps."""
+    from .ops.scan import cumsum_row_ids
 
     nrows = offsets.shape[0] - 1
     marks = torch.zeros(capacity + 1, dtype=torch.int32, device=offsets.device)
     marks.index_add_(
         0, offsets[:-1].to(torch.int64), torch.ones(nrows, dtype=torch.int32, device=offsets.device)
     )
-    ids = cumsum_i32(marks[:capacity]) - 1
-    return ids.clamp(0, max(nrows - 1, 0))
+    return cumsum_row_ids(marks[:capacity], nrows)
 
 
 def materialize_bytes(out_offsets: torch.Tensor, capacity: int, produce) -> torch.Tensor:

@@ -1,29 +1,52 @@
-// K3: inclusive int32 prefix sum / prefix max over a 1-D array.
+// K3: int32 prefix sum / prefix max over a 1-D array, in one pass.
 //
 // Replaces the TPU kernel custrings_tpu/ops/pallas_scan.py::_scan_pallas
-// (bodies _cumsum_kernel and _cummax_kernel, via cumsum_i32/cummax_i32).
-// The TPU version walks the array as ONE sequential grid with the carry in
-// SMEM scratch; Hopper's blocks run in parallel and in no order, so nothing
-// can be carried from block to block.
+// (bodies _cumsum_kernel and _cummax_kernel, via cumsum_i32/cummax_i32 and
+// column.cumsum0).  The TPU version walks the array as ONE sequential grid
+// with the carry in SMEM scratch; Hopper's blocks run in parallel and in
+// no order, so a tile cannot simply take its carry from the tile before.
 //
-// Bound on the H100: device-memory bytes.  The scan does ~1 add per
-// element; the work is read N inputs (1 or 4 bytes), write N int32, then a
-// second read+write of the int32 output to add the carries.  At the 1M-row
-// tier the byte-domain scans run over ~10^8 elements.
+//   inclusive:  out[i]     = x[0] op ... op x[i],   i < n
+//   shifted:    out[0] = 0, out[i + 1] = the same,  i < n  (cumsum0)
+//   then each stored value v becomes clamp(v + add, lo, hi) (wrapping
+//   add; row_ids_from_offsets' "- 1" and clamp; identity by default)
 //
-// Design: the three-phase scan.
-//   1. block_scan: each 256-thread block loads a 4096-element tile with
-//      coalesced loads into shared memory, each thread scans 16 contiguous
-//      elements serially, the thread totals are scanned with warp shuffles,
-//      and the tile is written back coalesced; the tile total goes to
-//      `partials`.
-//   2. The partials are scanned by the same code, recursively, until one
-//      block holds them all (4096^2 = 16.7M elements per two levels).
-//   3. add_carry: every element of tile b > 0 is combined with the scanned
-//      partial of tile b-1.
-// The sum wraps modulo 2^32 (computed in uint32), as the TPU's int32
-// arithmetic does; the max uses INT32_MIN as its identity, as the TPU
-// kernel does.  The wrapper allocates the output and the partials.
+// Bound on the H100: device-memory bytes.  The function reads n inputs and
+// writes n int32 outputs: 5 bytes an element for uint8/bool/int8 input, 8
+// for int32.  ~1 op an element is far under the op rate.
+//
+// Design: a single pass with decoupled look-back (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016).  The
+// three-phase scan this replaces (block scans, a recursive scan of the
+// block totals, then a carry pass) read and wrote the whole int32 output a
+// second time: 13 bytes an element for uint8 input instead of 5, in 3+
+// launches.  Here every element is read once and written once:
+//   - each 256-thread block takes an 8192-element tile id from an atomic
+//     counter (not blockIdx: blocks start in no order, and spinning on a
+//     predecessor that is not resident would deadlock; a tile handed out
+//     earlier belongs to a block already running);
+//   - each thread loads its 32 contiguous elements straight into registers
+//     with 16-byte loads, neighbouring threads on neighbouring addresses
+//     (element by element for the last tile and for an input that is not
+//     16-byte aligned), scans them serially, and the warps and the block
+//     combine their totals with shuffles;
+//   - the block publishes its aggregate in its 64-bit status word (flag and
+//     32-bit value in one store, so a reader never sees one without the
+//     other), then warp 0 looks back over 32 predecessors at a time,
+//     waiting only on those up to the nearest inclusive prefix, folding
+//     their aggregates, and publishes its own inclusive prefix;
+//   - the results go out through shared memory with 16-byte stores
+//     (scalar for the unaligned head and tail: out[1:] of cumsum0 is 4
+//     bytes off), so the output is written coalesced.
+// The tile size and the 4 blocks an SM (64 registers a thread) are the
+// fastest of the shapes measured on the H100 (PERF.md); a block that keeps
+// its tile in registers while it looks back is what bounds the blocks in
+// flight.  The sum wraps modulo 2^32 (computed in uint32), as the TPU's
+// int32 arithmetic does; the max uses INT32_MIN as its identity, as the
+// TPU kernel does; int8 input is sign-extended.  The wrapper zeroes the
+// tile counter and the status words (one int64 each,
+// `cs_scan_scratch_words`) before every call, so nothing survives from one
+// call to the next; the kernel allocates nothing.
 
 #include <cstdint>
 #include <climits>
@@ -32,12 +55,34 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ITEMS = 16;
-constexpr int TILE = THREADS * ITEMS;  // 4096
-// one padding slot every 32 ints: a thread's 16 serial reads then spread
-// over banks instead of hitting one bank 16 threads deep
-__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
-constexpr int SMEM_INTS = TILE + TILE / 32;
+constexpr int WARPS = THREADS / 32;
+constexpr int ITEMS = 32;
+constexpr int TILE = THREADS * ITEMS;  // 8192
+// blocks an SM must hold at once: caps a thread at 64 registers
+constexpr int MIN_BLOCKS = 4;
+constexpr int QUADS = TILE / 4;
+// one padding quad every 8 quads: the quads a thread writes and the quads
+// 8 neighbouring threads read then fall on distinct bank groups
+constexpr int QSLOTS = QUADS + QUADS / 8;
+constexpr unsigned FULL = 0xffffffffu;
+
+// a tile's status word: flag in the high 32 bits, value in the low 32
+constexpr unsigned long long FLAG_AGGREGATE = 1ull << 32;
+constexpr unsigned long long FLAG_INCLUSIVE = 2ull << 32;
+
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long pack(unsigned long long flag, int32_t v) {
+  return flag | (unsigned long long)(uint32_t)v;
+}
 
 struct Sum {
   static __device__ __forceinline__ int32_t identity() { return 0; }
@@ -53,112 +98,211 @@ struct Max {
   }
 };
 
+// the tile in shared memory, element j in lane j % 4 of quad j / 4
+struct Tile {
+  int4 q[QSLOTS];
+  static __device__ __forceinline__ int slot(int quad) { return quad + (quad >> 3); }
+  __device__ __forceinline__ int32_t& at(int j) {
+    return reinterpret_cast<int32_t*>(&q[slot(j >> 2)])[j & 3];
+  }
+  __device__ __forceinline__ int4& quad(int k) { return q[slot(k)]; }
+};
+
+// one thread's ITEMS inputs of a tile, as the 16-byte words it loaded
+template <typename T>
+struct Raw {
+  static constexpr int WORDS = ITEMS * (int)sizeof(T) / 16;
+  uint4 w[WORDS];
+};
+
+__device__ __forceinline__ uint32_t word_of(const uint4& q, int i) {
+  return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+}
+
+// issue the loads of the thread's ITEMS contiguous inputs of `tile` when
+// the tile is whole and the input 16-byte aligned (neighbouring threads
+// on neighbouring 16-byte words); false, and nothing loaded, otherwise
+template <typename T>
+__device__ __forceinline__ bool fetch(const T* __restrict__ in, int64_t n, int64_t tile,
+                                      bool aligned, int tid, Raw<T>& r) {
+  const int64_t g = tile * TILE;
+  if (!aligned || g + TILE > n) return false;
+  const uint4* p = reinterpret_cast<const uint4*>(in + g) + tid * Raw<T>::WORDS;
+#pragma unroll
+  for (int m = 0; m < Raw<T>::WORDS; ++m) r.w[m] = __ldg(p + m);
+  return true;
+}
+
+// the thread's ITEMS inputs as int32: from the fetched words, or loaded
+// one by one (the last tile, an unaligned input); 0 past n, which reaches
+// no stored value and only the last tile's aggregate, which no tile reads
+template <typename T>
+__device__ __forceinline__ void unpack(const T* __restrict__ in, int64_t n, int64_t tile,
+                                       bool whole, const Raw<T>& r, int tid,
+                                       int32_t (&v)[ITEMS]) {
+  if (whole) {
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      if constexpr (sizeof(T) == 1) {
+        const uint32_t b = (word_of(r.w[k >> 4], (k >> 2) & 3) >> (8 * (k & 3))) & 0xffu;
+        v[k] = (int32_t)(T)b;
+      } else {
+        v[k] = (int32_t)word_of(r.w[k >> 2], k & 3);
+      }
+    }
+  } else {
+    const int64_t g = tile * TILE + (int64_t)tid * ITEMS;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) v[k] = g + k < n ? (int32_t)in[g + k] : 0;
+  }
+}
+
+// the tile's first cnt elements to out[o0 ..)
+__device__ __forceinline__ void store_tile(int32_t* __restrict__ out, int64_t o0, int cnt,
+                                           Tile& s, int tid) {
+  int32_t* p = out + o0;
+  // the int32s before p's next 16-byte boundary
+  const int head = min((int)((16 - ((uintptr_t)p & 15)) & 15) >> 2, cnt);
+  const int body = (cnt - head) >> 2;
+  if (tid < head) p[tid] = s.at(tid);
+  int4* pv = reinterpret_cast<int4*>(p + head);
+  if (head == 0) {
+    for (int i = tid; i < body; i += THREADS) pv[i] = s.quad(i);
+  } else {
+    for (int i = tid; i < body; i += THREADS) {
+      const int j = head + 4 * i;
+      pv[i] = make_int4(s.at(j), s.at(j + 1), s.at(j + 2), s.at(j + 3));
+    }
+  }
+  for (int j = head + 4 * body + tid; j < cnt; j += THREADS) p[j] = s.at(j);
+}
+
+// warp 0: the op of every tile before `tile`, by decoupled look-back
+template <typename Op>
+__device__ __forceinline__ int32_t look_back(const unsigned long long* status, int64_t tile,
+                                             int lane) {
+  int32_t excl = Op::identity();
+  int64_t pred = tile - 1 - lane;  // lane 0 looks at the nearest predecessor
+  while (true) {
+    // wait until every predecessor up to the nearest inclusive prefix in
+    // this window of 32 has published
+    unsigned long long st;
+    unsigned inclusive;
+    while (true) {
+      st = pred >= 0 ? load_status(status + pred) : pack(FLAG_INCLUSIVE, Op::identity());
+      inclusive = __ballot_sync(FULL, (st >> 32) == 2);
+      const unsigned invalid = __ballot_sync(FULL, (st >> 32) == 0);
+      const unsigned upto = inclusive ? ((inclusive & (0u - inclusive)) << 1) - 1u : FULL;
+      if ((invalid & upto) == 0) break;
+    }
+    // fold the aggregates up to and including the nearest inclusive prefix
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    int32_t c = lane <= stop ? (int32_t)(uint32_t)st : Op::identity();
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) c = Op::op(c, __shfl_xor_sync(FULL, c, d));
+    excl = Op::op(excl, c);
+    if (inclusive) return excl;
+    pred -= 32;
+  }
+}
+
 template <typename Op, typename T>
-__global__ void __launch_bounds__(THREADS)
-block_scan(const T* in, int32_t* out, int64_t n, int32_t* partials) {
-  // no __restrict__: the recursive levels scan the partials in place
-  __shared__ int32_t tile[SMEM_INTS];
-  __shared__ int32_t warp_tot[THREADS / 32];
-  const int tid = threadIdx.x;
-  const int64_t base = (int64_t)blockIdx.x * TILE;
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+scan_tiles(const T* __restrict__ in, int32_t* __restrict__ out, int64_t n, int shift,
+           int32_t add, int32_t lo, int32_t hi, unsigned int* __restrict__ counter,
+           unsigned long long* __restrict__ status) {
+  __shared__ Tile s;
+  __shared__ int32_t warp_incl[WARPS];
+  __shared__ int32_t block_excl;
+  __shared__ unsigned int tile_id;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int i = k * THREADS + tid;
-    const int64_t g = base + i;
-    tile[pad(i)] = g < n ? (int32_t)in[g] : Op::identity();
-  }
+  if (tid == 0) tile_id = atomicAdd(counter, 1u);
   __syncthreads();
+  const int64_t tile = tile_id;
+  const int64_t g0 = tile * TILE;
+  const int cnt = n - g0 < TILE ? (int)(n - g0) : TILE;
 
-  // serial inclusive scan of this thread's ITEMS contiguous elements
-  int32_t acc = Op::identity();
-  const int first = tid * ITEMS;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    acc = Op::op(acc, tile[pad(first + k)]);
-    tile[pad(first + k)] = acc;
+  // this thread's ITEMS contiguous elements, scanned serially
+  int32_t v[ITEMS];
+  {
+    Raw<T> r;
+    const bool whole = fetch(in, n, tile, ((uintptr_t)in & 15) == 0, tid, r);
+    unpack(in, n, tile, whole, r, tid, v);
   }
+#pragma unroll
+  for (int k = 1; k < ITEMS; ++k) v[k] = Op::op(v[k - 1], v[k]);
 
-  // inclusive scan of the thread totals across the warp
-  const int lane = tid & 31, warp = tid >> 5;
-  int32_t x = acc;
+  // the thread totals across the warp, then the warp totals
+  int32_t x = v[ITEMS - 1];
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int32_t y = __shfl_up_sync(0xffffffffu, x, d);
+    const int32_t y = __shfl_up_sync(FULL, x, d);
     if (lane >= d) x = Op::op(y, x);
   }
-  if (lane == 31) warp_tot[warp] = x;
+  if (lane == 31) warp_incl[warp] = x;
   __syncthreads();
+
   if (warp == 0) {
-    int32_t w = lane < THREADS / 32 ? warp_tot[lane] : Op::identity();
+    int32_t w = lane < WARPS ? warp_incl[lane] : Op::identity();
 #pragma unroll
-    for (int d = 1; d < THREADS / 32; d <<= 1) {
-      const int32_t y = __shfl_up_sync(0xffffffffu, w, d);
+    for (int d = 1; d < WARPS; d <<= 1) {
+      const int32_t y = __shfl_up_sync(FULL, w, d);
       if (lane >= d) w = Op::op(y, w);
     }
-    if (lane < THREADS / 32) warp_tot[lane] = w;
+    if (lane < WARPS) warp_incl[lane] = w;
+    const int32_t aggregate = __shfl_sync(FULL, w, WARPS - 1);
+    int32_t excl = Op::identity();
+    if (tile == 0) {
+      if (lane == 0) store_status(status, pack(FLAG_INCLUSIVE, aggregate));
+    } else {
+      if (lane == 0) store_status(status + tile, pack(FLAG_AGGREGATE, aggregate));
+      excl = look_back<Op>(status, tile, lane);
+      if (lane == 0) {
+        store_status(status + tile, pack(FLAG_INCLUSIVE, Op::op(excl, aggregate)));
+      }
+    }
+    if (lane == 0) block_excl = excl;
   }
   __syncthreads();
 
-  // exclusive prefix of this thread = earlier warps + earlier lanes
-  int32_t excl = __shfl_up_sync(0xffffffffu, x, 1);
-  if (lane == 0) excl = Op::identity();
-  if (warp > 0) excl = Op::op(warp_tot[warp - 1], excl);
+  // exclusive prefix of this thread = earlier tiles, warps and lanes
+  int32_t lane_excl = __shfl_up_sync(FULL, x, 1);
+  if (lane == 0) lane_excl = Op::identity();
+  int32_t pre = block_excl;
+  if (warp > 0) pre = Op::op(pre, warp_incl[warp - 1]);
+  pre = Op::op(pre, lane_excl);
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
-    tile[pad(first + k)] = Op::op(excl, tile[pad(first + k)]);
+    const int32_t r = (int32_t)((uint32_t)Op::op(pre, v[k]) + (uint32_t)add);
+    v[k] = max(lo, min(hi, r));
+  }
+#pragma unroll
+  for (int m = 0; m < ITEMS / 4; ++m) {
+    s.quad(tid * (ITEMS / 4) + m) = make_int4(v[4 * m], v[4 * m + 1], v[4 * m + 2], v[4 * m + 3]);
   }
   __syncthreads();
 
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int i = k * THREADS + tid;
-    const int64_t g = base + i;
-    if (g < n) out[g] = tile[pad(i)];
-  }
-  if (partials != nullptr && tid == 0) {
-    partials[blockIdx.x] = warp_tot[THREADS / 32 - 1];
-  }
+  if (shift && tile == 0 && tid == 0) out[0] = 0;
+  store_tile(out, g0 + shift, cnt, s, tid);
 }
 
-template <typename Op>
-__global__ void __launch_bounds__(THREADS)
-add_carry(int32_t* __restrict__ out, int64_t n,
-          const int32_t* __restrict__ scanned_partials) {
-  const int64_t tile_id = (int64_t)blockIdx.x + 1;
-  const int32_t carry = scanned_partials[tile_id - 1];
-  const int64_t base = tile_id * TILE;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int64_t g = base + k * THREADS + threadIdx.x;
-    if (g < n) out[g] = Op::op(carry, out[g]);
-  }
-}
-
-int64_t n_tiles(int64_t n) { return (n + TILE - 1) / TILE; }
-
-// scans int32 data already in `out` (in place) or typed `in` into `out`
 template <typename Op, typename T>
-void scan_level(const T* in, int32_t* out, int64_t n, int32_t* scratch,
-                cudaStream_t stream) {
-  const int64_t nb = n_tiles(n);
-  if (nb <= 1) {
-    block_scan<Op, T><<<1, THREADS, 0, stream>>>(in, out, n, nullptr);
-    return;
-  }
-  int32_t* partials = scratch;
-  block_scan<Op, T><<<(unsigned)nb, THREADS, 0, stream>>>(in, out, n, partials);
-  scan_level<Op, int32_t>(partials, partials, nb, scratch + nb, stream);
-  add_carry<Op><<<(unsigned)(nb - 1), THREADS, 0, stream>>>(out, n, partials);
+void launch(const void* in, int32_t* out, int64_t n, int shift, int32_t add, int32_t lo,
+            int32_t hi, void* scratch, cudaStream_t stream) {
+  const unsigned tiles = (unsigned)((n + TILE - 1) / TILE);
+  scan_tiles<Op, T><<<tiles, THREADS, 0, stream>>>(
+      (const T*)in, out, n, shift, add, lo, hi, (unsigned int*)scratch,
+      (unsigned long long*)scratch + 1);
 }
 
 template <typename Op>
-void scan_dispatch(const void* in, int dtype, int32_t* out, int64_t n,
-                   int32_t* scratch, cudaStream_t s) {
+void dispatch(const void* in, int dtype, int32_t* out, int64_t n, int shift, int32_t add,
+              int32_t lo, int32_t hi, void* scratch, cudaStream_t s) {
   switch (dtype) {
-    case 0: scan_level<Op, uint8_t>((const uint8_t*)in, out, n, scratch, s); break;
-    case 1: scan_level<Op, int8_t>((const int8_t*)in, out, n, scratch, s); break;
-    default: scan_level<Op, int32_t>((const int32_t*)in, out, n, scratch, s); break;
+    case 0: launch<Op, uint8_t>(in, out, n, shift, add, lo, hi, scratch, s); break;
+    case 1: launch<Op, int8_t>(in, out, n, shift, add, lo, hi, scratch, s); break;
+    default: launch<Op, int32_t>(in, out, n, shift, add, lo, hi, scratch, s); break;
   }
 }
 
@@ -166,26 +310,21 @@ void scan_dispatch(const void* in, int dtype, int32_t* out, int64_t n,
 
 extern "C" {
 
-// int32 elements of scratch the recursive partials need for n inputs
-int64_t cs_scan_scratch_elems(int64_t n) {
-  int64_t total = 0;
-  int64_t nb = n_tiles(n);
-  while (nb > 1) {
-    total += nb;
-    nb = n_tiles(nb);
-  }
-  return total;
-}
+// int64 words of zeroed scratch a scan of n elements needs: the tile
+// counter, then one status word per tile
+int64_t cs_scan_scratch_words(int64_t n) { return 1 + (n + TILE - 1) / TILE; }
 
 // dtype: 0 = uint8 (and bool), 1 = int8, 2 = int32.  op: 0 = sum, 1 = max.
-int cs_scan(const void* in, int dtype, void* out, int64_t n, int op,
-            void* scratch, void* stream) {
+// shift: 0 -> out[i] (n outputs), 1 -> out[0] = 0 and out[i + 1] (n + 1).
+// Each stored scan value v becomes clamp(v + add, lo, hi).
+int cs_scan(const void* in, int dtype, void* out, int64_t n, int op, int shift, int add,
+            int lo, int hi, void* scratch, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (op == 0) {
-    scan_dispatch<Sum>(in, dtype, (int32_t*)out, n, (int32_t*)scratch, s);
+    dispatch<Sum>(in, dtype, (int32_t*)out, n, shift, add, lo, hi, scratch, s);
   } else {
-    scan_dispatch<Max>(in, dtype, (int32_t*)out, n, (int32_t*)scratch, s);
+    dispatch<Max>(in, dtype, (int32_t*)out, n, shift, add, lo, hi, scratch, s);
   }
   return (int)cudaGetLastError();
 }

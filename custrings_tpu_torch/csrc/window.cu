@@ -4,14 +4,19 @@
 // (body _window_kernel_factory, words=False via ragged_gather_i32 /
 // ragged_gather, words=True via ragged_gather_words).
 //
-//   bytes: out[r, k] = starts[r] + k < cap ? data[starts[r] + k] : 0, k < W
+//   bytes: out[r, k] = starts[r] + k < cap ? data[starts[r] + k] : 0, k < W,
+//          and 0 for k >= lens[r] when lengths are given
 //   words: out[r, q] = b[4q] << 24 | b[4q+1] << 16 | b[4q+2] << 8 | b[4q+3]
 //          over the same window, zeros past the end of the buffer
 //
-// Neither form masks at the row's length: callers mask, as on the TPU.
+// The bytes form masks at each row's length in the kernel when it is given
+// the lengths (the padded views and the char matrix), so no second pass
+// over the [rows, W] output is needed; without them neither form masks,
+// as on the TPU.
 //
 // Bound on the H100: device-memory bytes, read rows*W input bytes (rows
-// overlap little) and write rows*W output bytes (x4 for the int32 form).
+// overlap little; with lengths, only the bytes inside each row) and write
+// rows*W output bytes (x4 for the int32 form).
 // The TPU version spends one aligned 4 KB DMA per row plus a rotate,
 // because Mosaic only slices aligned windows; Hopper has no such rule,
 // so the per-row alignment machinery, the SMEM row chunking and the
@@ -35,16 +40,17 @@ constexpr int ROWS_PER_BLOCK = 8;
 template <typename OutT>
 __global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
 window_bytes(const uint8_t* __restrict__ data, int64_t cap,
-             const int32_t* __restrict__ starts, int64_t rows, int64_t W,
-             OutT* __restrict__ out) {
+             const int32_t* __restrict__ starts, const int32_t* __restrict__ lens,
+             int64_t rows, int64_t W, OutT* __restrict__ out) {
   const int64_t r = (int64_t)blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   if (r >= rows) return;
   const int lane = threadIdx.x & 31;
   const int64_t s = starts[r];
+  const int64_t len = lens != nullptr ? (int64_t)lens[r] : W;
   OutT* o = out + r * W;
   for (int64_t k = lane; k < W; k += 32) {
     const int64_t g = s + k;
-    o[k] = (g >= 0 && g < cap) ? (OutT)data[g] : (OutT)0;
+    o[k] = (k < len && g >= 0 && g < cap) ? (OutT)data[g] : (OutT)0;
   }
 }
 
@@ -77,20 +83,21 @@ unsigned grid_for(int64_t rows) {
 
 extern "C" {
 
-// out_int32: 0 -> uint8 output, 1 -> int32 output (one byte per element)
+// out_int32: 0 -> uint8 output, 1 -> int32 output (one byte per element);
+// lens: int32[rows] row lengths to mask at, or null for no mask
 int cs_window_bytes(const void* data, int64_t cap, const void* starts,
-                    int64_t rows, int64_t W, int out_int32, void* out,
-                    void* stream) {
+                    const void* lens, int64_t rows, int64_t W, int out_int32,
+                    void* out, void* stream) {
   if (rows <= 0 || W <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (out_int32) {
     window_bytes<int32_t><<<grid_for(rows), ROWS_PER_BLOCK * 32, 0, s>>>(
-        (const uint8_t*)data, cap, (const int32_t*)starts, rows, W,
-        (int32_t*)out);
+        (const uint8_t*)data, cap, (const int32_t*)starts,
+        (const int32_t*)lens, rows, W, (int32_t*)out);
   } else {
     window_bytes<uint8_t><<<grid_for(rows), ROWS_PER_BLOCK * 32, 0, s>>>(
-        (const uint8_t*)data, cap, (const int32_t*)starts, rows, W,
-        (uint8_t*)out);
+        (const uint8_t*)data, cap, (const int32_t*)starts,
+        (const int32_t*)lens, rows, W, (uint8_t*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -58,10 +58,10 @@ _I32 = ctypes.c_int
 
 _SIGNATURES = {
     # scan.cu
-    "cs_scan_scratch_elems": ([_I64], _I64),
-    "cs_scan": ([_P, _I32, _P, _I64, _I32, _P, _P], _I32),
+    "cs_scan_scratch_words": ([_I64], _I64),
+    "cs_scan": ([_P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P], _I32),
     # window.cu
-    "cs_window_bytes": ([_P, _I64, _P, _I64, _I64, _I32, _P, _P], _I32),
+    "cs_window_bytes": ([_P, _I64, _P, _P, _I64, _I64, _I32, _P, _P], _I32),
     "cs_window_words": ([_P, _I64, _P, _I64, _I64, _P, _P], _I32),
     # nfa_bits.cu
     "cs_nfa_bits": ([_P, _P, _P, _I32, _P, _I32, _P, _I64, _I64, _I32, _P, _P], _I32),

@@ -2,9 +2,10 @@
 
 Port of `custrings_tpu/ops/array.py`: `_gather_impl` / `gather`,
 `_mask_word_tails`, `_key_words` and `_order_impl`.  Sort keys are
-big-endian 32-bit words of each row's bytes: below the layout's
-`STREAM_VIEW_MIN` gathered by K1b (`ragged_gather_words`), from it packed
-from the streaming padded view, as in the JAX package.  Keys are carried
+big-endian 32-bit words of each row's bytes, gathered by K1b
+(`ragged_gather_words`) at every size, or packed from the streaming
+padded view where the layout's `STREAM_VIEW_MIN` routes to it (the JAX
+package's TPU route).  Keys are carried
 as int64 holding the unsigned 32-bit value, so torch's signed sorts give
 unsigned order; a sort over k keys is k stable single-key passes, least
 significant first (the JAX package's `_LSD_ROWS` branch), at every size.
@@ -78,8 +79,8 @@ def _pack_words(view: torch.Tensor) -> torch.Tensor:
 def _key_words(col: StringColumn, width: int) -> torch.Tensor:
     """int32[rows, width/4] big-endian words of each row's first `width`
     bytes (uint32 bits; width a multiple of 4), zero past the row's
-    length: from the streaming padded view at the layout's stream sizes,
-    by K1b otherwise."""
+    length: by K1b, or from the streaming padded view where the layout
+    routes to it."""
     if layout._use_stream_view(col, width):
         be = _pack_words(layout.padded_view(col, width))
     else:

@@ -6,13 +6,14 @@ memoized planes (`tail_plane`, `row_bounds_planes`), the ASCII facts
 `char_matrix` / `char_matrix_rows`, the host-side `length_buckets`, the
 column-wide char index (`char_map`, `codepoints`) and `gather_bytes`.
 
-A padded view is built one of two ways, chosen by size as in the JAX
-package: below `STREAM_VIEW_MIN` output elements by the window gather
-(K1, `ops/window.py`) plus a length mask; from it by the streaming view,
-which moves every byte of the flat buffer to its slot of the
-[rows, width] grid with one monotone expansion (K4e, `ops/route.py`),
-after a compaction (K4c) that drops the bytes past `width` when the
-width does not cover every row.
+A padded view is built by the window gather (K1, `ops/window.py`),
+which masks at each row's length in the kernel, at every size.  The
+streaming view of the JAX package's TPU route, which moves every byte of
+the flat buffer to its slot of the [rows, width] grid with one monotone
+expansion (K4e, `ops/route.py`) after a compaction (K4c) that drops the
+bytes past `width` when the width does not cover every row, stays
+reachable through `STREAM_VIEW_MIN`: it existed for the TPU's per-row
+DMA cost, and on the H100 it is slower than K1 at every width measured.
 
 The char matrix is always the hybrid build (`_char_matrix_hybrid` in the
 JAX package): ASCII rows take the gathered bytes as codepoints and the
@@ -107,12 +108,13 @@ def max_row_bytes(col: StringColumn) -> int:
     return c["max_row_bytes"]
 
 
-#: padded views of at least this many elements take the streaming route
-STREAM_VIEW_MIN = 1 << 22
+#: padded views of at least this many elements take the streaming route;
+#: None: none does (the K1 window view is faster at every size)
+STREAM_VIEW_MIN: int | None = None
 
 
 def _use_stream_view(col: StringColumn, width: int) -> bool:
-    return col.size * width >= STREAM_VIEW_MIN
+    return STREAM_VIEW_MIN is not None and col.size * width >= STREAM_VIEW_MIN
 
 
 def _expand_to_grid(data, offsets, width: int, cap: int) -> torch.Tensor:
@@ -152,10 +154,8 @@ def _stream_view_any(col: StringColumn, width: int) -> torch.Tensor:
 
 
 def _window_view(col: StringColumn, width: int) -> torch.Tensor:
-    """The padded view by the window gather (K1) and a length mask."""
-    k = torch.arange(width, dtype=torch.int32, device=col.device)[None, :]
-    raw = ragged_gather(col.data, col.offsets[:-1], width)
-    return torch.where(k < col.lengths()[:, None], raw, 0).to(torch.uint8)
+    """The padded view by the window gather (K1), masked at the lengths."""
+    return ragged_gather(col.data, col.offsets[:-1], width, col.lengths())
 
 
 def padded_view(col: StringColumn, width: int | None = None) -> torch.Tensor:
@@ -348,9 +348,8 @@ def _decode_rows(col: StringColumn, rows: torch.Tensor, width: int):
     wb = max(width, max_row_bytes(col))
     starts = col.offsets[:-1][rows]
     lens = col.lengths()[rows]
-    k = torch.arange(wb, dtype=torch.int32, device=col.device)[None, :]
-    P = torch.where(k < lens[:, None], ragged_gather(col.data, starts, wb), 0)
-    mat, nch = _char_matrix_rowwise(P.to(torch.uint8), lens, wb)
+    P = ragged_gather(col.data, starts, wb, lens)
+    mat, nch = _char_matrix_rowwise(P, lens, wb)
     return mat[:, :width], nch
 
 
@@ -365,8 +364,7 @@ def _char_matrix_hybrid(col: StringColumn, rows, na_pos, width: int, stream: boo
         mat = _padded_view_stream(col, width).to(torch.int32)
     else:
         starts = col.offsets[:-1] if rows is None else col.offsets[:-1][rows]
-        kk = torch.arange(width, dtype=torch.int32, device=col.device)[None, :]
-        mat = torch.where(kk < lens[:, None], ragged_gather_i32(col.data, starts, width), 0)
+        mat = ragged_gather_i32(col.data, starts, width, lens)
     nch = lens.clone()
     if na_pos.shape[0]:
         na_rows = na_pos if rows is None else rows[na_pos]

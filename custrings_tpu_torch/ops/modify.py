@@ -25,7 +25,6 @@ from ..column import BOUND_SYNC_THRESHOLD, StringColumn, cumsum0
 from ..config import bucket_bytes
 from . import layout, segments, shift_compact
 from .find import _match_mask, _pat_array
-from .scan import cumsum_i32
 
 
 def _has_border(pat: bytes) -> bool:
@@ -71,9 +70,7 @@ def _replace_same_len(col: StringColumn, p, r, m: int, bordered: bool, n: int):
     picked = _greedy_select(match, m, bordered)
     if n >= 0:
         # keep the first n picks of each row
-        pk0 = torch.cat(
-            [torch.zeros(1, dtype=torch.int32, device=col.device), cumsum_i32(picked)]
-        )
+        pk0 = cumsum0(picked)
         base = segments.broadcast_rows_to_bytes(
             pk0[col.offsets[:-1].to(torch.int64)], col.offsets, cap
         )

@@ -31,6 +31,7 @@ from . import layout, segments, shift_compact
 from .array import _gather_impl
 from .find import _match_mask, _pat_array
 from .modify import _fit, _greedy_select, _has_border
+from .scan import cummax0_i32
 
 _INF = 1 << 28
 
@@ -174,12 +175,7 @@ def _token_ends(col: StringColumn, dvals, ddist, ndel, k0, tok_off, tcap: int):
     T = torch.cat([T0, torch.zeros(1, dtype=torch.int32, device=col.device)])
     last = torch.where(col.validity, tok_off[1:] - 1, tcap).to(torch.int64)
     T[last] = k0[col.offsets[1:].to(torch.int64)]
-    return cumsum0_cummax(T[:tcap])
-
-
-def cumsum0_cummax(T: torch.Tensor) -> torch.Tensor:
-    """[0] + running max of T (int32)."""
-    return torch.cat([torch.zeros(1, dtype=torch.int32, device=T.device), segments.cummax(T)])
+    return cummax0_i32(T[:tcap])
 
 
 def _delim_full_fast(col: StringColumn, tcap: int, bcap: int, m: int, picked, tail):

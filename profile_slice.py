@@ -15,13 +15,15 @@ long rows): the wall time without the profiler, and under torch.profiler
 the wall time, the summed device time, the twelve device items that took
 longest and the peak device memory above the op's input column.  Then
 the parts of contains_re(#\\w+) and contains_re(ERR) timed alone with
-CUDA events: the char matrix (for #\\w+ on the streaming view and K1
-window routes) and the K2 wrapper; and the K2b wrapper by program on the
-log rows (ERR, ERR without its word boundaries, ISO, MONTH), each
+CUDA events: the char matrix (for #\\w+ on the K1 window route the
+package takes and on the streaming view) and the K2 wrapper; and the K2b
+wrapper by program on the log rows (ERR, ERR without its word
+boundaries, ISO, MONTH), each
 unanchored and anchored (`--matchers` runs the ops on K2 and K2b and
 these parts alone).  Then the three ops in sequence on a fresh column on
-each padded-view route (the streaming view the slice takes at 1M rows,
-and the K1 window view), alternated stream, window, window, stream.
+each padded-view route (the K1 window view the package takes, and the
+streaming view forced through `layout.STREAM_VIEW_MIN`), alternated
+stream, window, window, stream.
 Last, DeviceProgram.all_spans per call on the tweet rows' [1M, 320] char
 matrix for each span pattern of chip_smoke.py's span_all case, counts
 only and with full planes: CUDA event ms, peak device memory above the
@@ -196,12 +198,12 @@ def main() -> int:
         print(cs._nvidia_smi(), flush=True)
         return 0
 
-    # the slice's ops in sequence on each padded-view route (the streaming
-    # view, as the slice takes it at 1M rows, and the K1 window view),
-    # alternated so drift shows, with the allocator already warm
+    # the slice's ops in sequence on each padded-view route (the K1 window
+    # view, the package's route, and the streaming view forced), alternated
+    # so drift shows, with the allocator already warm
     default_min = layout.STREAM_VIEW_MIN
     for route in ("stream", "window", "window", "stream"):
-        layout.STREAM_VIEW_MIN = default_min if route == "stream" else 1 << 62
+        layout.STREAM_VIEW_MIN = 0 if route == "stream" else default_min
         c = fresh()
         ms = {}
         _, ms["contains_re"] = _timed(torch, lambda: ops["contains_re"][1](c))

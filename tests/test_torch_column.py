@@ -12,6 +12,10 @@ from custrings_tpu.ops import array as jarray
 from custrings_tpu_torch import column as tcol
 from custrings_tpu_torch.ops import array as tarray
 
+# one intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each oversubscribes the cores
+torch.set_num_threads(1)
+
 STRS = [
     "hello world",
     None,

@@ -24,6 +24,10 @@ from custrings_tpu_torch import nvstrings as tnv
 from custrings_tpu_torch.ops import compact as tcompact
 from custrings_tpu_torch.ops import hash as thash
 
+# one intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _chip_smoke():
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")

@@ -1,7 +1,8 @@
 """Port parity for K2 and the regex tables: the compiler copy and the
 DeviceProgram tables of custrings_tpu_torch equal custrings_tpu's, the
 plain bit matcher equals the Pallas bit kernel in interpret mode and
-Python `re`, and contains_re / match_re equal the JAX ops."""
+Python `re`, and contains_re equals the JAX op on a long program
+(contains_re / match_re on K2's columns are in test_torch_nfa_parity.py)."""
 
 import re
 
@@ -17,6 +18,10 @@ from custrings_tpu.regex.pallas_nfa import PallasNFA
 from custrings_tpu_torch import column as tcol
 from custrings_tpu_torch.regex import compiler as tcomp
 from custrings_tpu_torch.regex import ops as trx
+
+# one intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each oversubscribes the cores
+torch.set_num_threads(1)
 
 PATTERNS = [r"#\w+", r"^ab", r"a.c", r"[0-9]+x", r"\bthe\b", r"[^a-z ]+"]
 
@@ -106,29 +111,6 @@ def test_ascii_route_equals_general_route(pattern):
             trx.get_program(pattern).nfa_matches(chars, nch, anchored, True).numpy(),
             nfa.matches(chars, nch, anchored).numpy(),
         )
-
-
-def _columns():
-    rng = np.random.default_rng(2)
-    ascii_heavy = ["row %d the #t%d" % (i, i) for i in range(60)] + ROWS
-    mostly_na = ROWS * 3
-    buckets = ["s %d" % i for i in range(300)] + ["#ü" + "the " * int(k) for k in rng.integers(120, 150, 30)]
-    return {"ascii_heavy": ascii_heavy, "mostly_nonascii": mostly_na, "bucketed": buckets}
-
-
-@pytest.mark.parametrize("name", ["ascii_heavy", "mostly_nonascii", "bucketed"])
-@pytest.mark.parametrize("pattern", [r"#\w+", r"\bthe\b", r"^ab", r"[^a-z ]+"])
-def test_contains_and_match_parity(name, pattern):
-    strs = _columns()[name]
-    t, j = _pair(strs)
-    if name == "bucketed":
-        assert jlayout.length_buckets(j) is not None
-    np.testing.assert_array_equal(
-        trx.contains_re(t, pattern).numpy(), np.asarray(jrx.contains_re(j, pattern))
-    )
-    np.testing.assert_array_equal(
-        trx.match_re(t, pattern).numpy(), np.asarray(jrx.match_re(j, pattern))
-    )
 
 
 def test_long_program_parity():

@@ -1,9 +1,11 @@
-"""Port parity for the rest of the boolean matcher: K2b's plain walk
-(`nfa_words`) against the Pallas dense kernel `_matches_f32` in interpret
-mode, the JAX vector engine and Python `re`; the port's vector engine over
-a program of more than 256 instructions and its chunked engine against the
-JAX ones; and contains_re / match_re through every route (K2, K2b, the
-vector engine, chunked) against `custrings_tpu.regex.ops`."""
+"""Port parity for K2b: its plain walk (`nfa_words`) against the Pallas
+dense kernel `_matches_f32` in interpret mode, the JAX vector engine and
+Python `re`; its char tables against the Pallas planes; one engine call
+per contains_re / match_re on the K2 and K2b routes; the facade; and
+chip_smoke.py's matcher sets on their engines.  The vector and chunked
+engines and the routes over bucketed columns are in
+`test_torch_nfa_{vector,chunked,routes}.py`, which share this file's
+rows and helpers."""
 
 import importlib.util
 import os
@@ -22,6 +24,10 @@ from custrings_tpu_torch import column as tcol
 from custrings_tpu_torch import nvstrings as tnv
 from custrings_tpu_torch.regex import nfa_bits, nfa_words
 from custrings_tpu_torch.regex import ops as trx
+
+# one intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each oversubscribes the cores
+torch.set_num_threads(1)
 
 
 def _chip_smoke():
@@ -108,63 +114,6 @@ def test_pos_tables_equal_pallas(pattern, ascii):
         np.testing.assert_array_equal(uid.numpy(), np.asarray(ju))
 
 
-@pytest.mark.parametrize("pattern", [CS.BIG, "a{300}"])
-def test_vector_engine_over_256_insts(pattern):
-    strs = ROWS + ["a" * 300, "a" * 299 + "b", "on monday, january 3: connection refused"]
-    t, j = _pair(strs)
-    jchars, jnch, chars, nch = _mats(j)
-    dp, jdp = trx.get_program(pattern), jrx.get_program(pattern)
-    assert dp.I > nfa_words.MAX_INSTS and trx._get_nfa(pattern) is None
-    for anchored in (False, True):
-        got = dp.nfa_matches(chars, nch, anchored).numpy()
-        np.testing.assert_array_equal(got, np.asarray(jdp.nfa_matches(jchars, jnch, anchored)))
-        assert (got & np.asarray(j.validity)).tolist() == _oracle(pattern, strs, anchored)
-
-
-CHUNK_CORPUS = ROWS + ["x" * 100 + "Hello world !" + "y" * 80, "world" * 40, "ab\n" * 50 + "x"]
-
-
-@pytest.mark.parametrize("pattern", [r"\w+", r"[Hh]ello [Ww]orld", r"\bworld\b", r"^x", r"o$", CS.ERR])
-def test_chunked_vs_jax(pattern):
-    """Chunk sizes that do and do not divide the padded width."""
-    t, j = _pair(CHUNK_CORPUS)
-    jchars, jnch, chars, nch = _mats(j)
-    dp, jdp = trx.get_program(pattern), jrx.get_program(pattern)
-    for anchored in (False, True):
-        want = dp.nfa_matches(chars, nch, anchored).numpy()
-        for G in (16, 64, 100):
-            got = dp.nfa_matches_chunked(chars, nch, anchored, G).numpy()
-            np.testing.assert_array_equal(got, np.asarray(jdp.nfa_matches_chunked(jchars, jnch, anchored, G)))
-            np.testing.assert_array_equal(got, want)
-
-
-def _columns():
-    rng = np.random.default_rng(4)
-    logs = [s and CS._cut(s, 120) for s in CS.make_logs(60, seed=6)]
-    ascii_heavy = [s for s in logs if s is None or s.isascii()] + ROWS[:14]
-    mostly_na = [s for s in ROWS if s is None or not s.isascii()] * 4 + ["plain error"]
-    buckets = ["s %d" % i for i in range(300)] + [
-        "#ü " + "the timeout " * int(k) + ("fatal" if k % 2 else "") for k in rng.integers(40, 50, 30)
-    ]
-    return {"ascii_heavy": ascii_heavy, "mostly_nonascii": mostly_na, "bucketed": buckets}
-
-
-def _route_parity(name, pattern):
-    strs = _columns()[name]
-    t, j = _pair(strs)
-    if name == "bucketed":
-        assert jlayout.length_buckets(j) is not None
-    for fn_t, fn_j in ((trx.contains_re, jrx.contains_re), (trx.match_re, jrx.match_re)):
-        np.testing.assert_array_equal(fn_t(t, pattern).numpy(), np.asarray(fn_j(j, pattern)))
-
-
-@pytest.mark.parametrize("name", ["ascii_heavy", "mostly_nonascii", "bucketed"])
-@pytest.mark.parametrize("pattern", [r"\btimeout\b", CS.ERR, "a{300}"])
-def test_contains_and_match_routes(name, pattern):
-    """K2, K2b and the vector engine, below the chunk threshold."""
-    _route_parity(name, pattern)
-
-
 #: rows with non-ASCII (BMP and astral), null and empty rows for the
 #: kernel routes: few enough in the first column that the torch engines
 #: would take their ASCII pass there, most rows in the second
@@ -199,17 +148,6 @@ def test_kernel_routes_make_one_engine_call(monkeypatch, name, pattern):
         calls.clear()
         np.testing.assert_array_equal(fn_t(t, pattern).numpy(), np.asarray(fn_j(j, pattern)))
         assert calls == [len(strs)]
-
-
-@pytest.mark.parametrize("name", ["ascii_heavy", "mostly_nonascii", "bucketed"])
-@pytest.mark.parametrize("pattern", [r"\btimeout\b", CS.ERR])
-def test_contains_and_match_chunked_route(monkeypatch, name, pattern):
-    """The chunked engine, with the threshold lowered on both sides so that
-    every width takes it (and, in the bucketed column, one width only)."""
-    thresh = "256" if name == "bucketed" else "128"
-    monkeypatch.setenv("CUSTRINGS_CHUNK_THRESHOLD", thresh)
-    assert trx._chunk_threshold() == int(thresh)
-    _route_parity(name, pattern)
 
 
 @pytest.mark.parametrize("pattern", [CS.ERR, CS.MONTH])

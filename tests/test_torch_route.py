@@ -5,6 +5,8 @@ several tiles are stitched), and the streaming padded view, char matrix,
 key words and hashed encode against the JAX ones with the streaming
 route forced in both packages."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +26,10 @@ from custrings_tpu_torch.ops import unique as tuq
 
 from test_torch_slice import CORPUS
 from test_torch_window import MIXED
+
+# one intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each oversubscribes the cores
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("n", [256, 500, 5000])
@@ -147,3 +153,39 @@ def test_stream_encode_hashed_matches_jax(stream_views):
     assert (int(nkeys), bool(amb), int(u), ucap) == (int(jn), bool(ja), int(ju), jucap)
     np.testing.assert_array_equal(values.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(key_rows.numpy()[: int(nkeys)], np.asarray(jk)[: int(jn)])
+
+
+@pytest.mark.parametrize("rows,width", [(1, 8), (1 << 20, 64), (1 << 20, 320), (1 << 26, 4096)])
+def test_views_route_a_cuda_column_to_the_window(monkeypatch, rows, width):
+    """The route predicate sends a column on the card to the K1 window view
+    at every size, small or past the JAX package's STREAM_VIEW_MIN (a stub
+    column: the predicate reads only the size), and the streaming route
+    stays reachable through the layout's STREAM_VIEW_MIN, as the
+    stream_views fixture sets it."""
+    stub = types.SimpleNamespace(size=rows, device=torch.device("cuda"))
+    assert not tlayout._use_stream_view(stub, width)
+    monkeypatch.setattr(tlayout, "STREAM_VIEW_MIN", 0)
+    assert tlayout._use_stream_view(stub, width)
+
+
+def test_views_entry_points_never_stream(monkeypatch):
+    """padded_view, char_matrix and the key words at the default route build
+    no streaming view (K4c/K4e would raise here) and equal the JAX
+    package's window views."""
+
+    def refuse(*a, **k):
+        raise AssertionError("the streaming route was taken")
+
+    monkeypatch.setattr(tlayout, "expand_stream", refuse)
+    monkeypatch.setattr(tlayout, "compact_arrays", refuse)
+    t, j = _pair(MIXED + CORPUS[:60])
+    full = -(-tlayout.max_row_bytes(t) // 4) * 4
+    for w in (8, 64, full):
+        np.testing.assert_array_equal(tlayout.padded_view(t, w).numpy(), np.asarray(jlayout.padded_view(j, w)))
+        np.testing.assert_array_equal(
+            tarray._key_words(t, w).numpy(), np.asarray(jarray._key_words(j, w)).view(np.int32)
+        )
+    mat, nch = tlayout.char_matrix(t, full)
+    jmat, jnch = jlayout.char_matrix(j, full)
+    np.testing.assert_array_equal(nch.numpy(), np.asarray(jnch))
+    np.testing.assert_array_equal(mat.numpy(), np.asarray(jmat))

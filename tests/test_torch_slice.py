@@ -23,6 +23,10 @@ from custrings_tpu_torch.ops import layout as tlayout
 from custrings_tpu_torch.ops import modify as tmod
 from custrings_tpu_torch.ops import unique as tuq
 
+# one intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _chip_smoke():
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")

@@ -31,6 +31,10 @@ from custrings_tpu_torch.regex.nfa_bits import NFABits
 from custrings_tpu_torch.regex.nfa_words import NFAWords
 from custrings_tpu_torch.regex.span_bits import SpanBits, span_bits_ok
 
+# one intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each oversubscribes the cores
+torch.set_num_threads(1)
+
 CORPUS = [
     "", "a", "the", "that", "ththat", "thethat", "a@b", "a@b@c",
     "user@host tail", " x@y ", "aaa", "no match here!", "@", "a@",

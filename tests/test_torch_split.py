@@ -27,6 +27,10 @@ from custrings_tpu_torch.ops import split as tsp
 
 from test_torch_regex_spans import ROWS
 
+# one intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each oversubscribes the cores
+torch.set_num_threads(1)
+
 STRS = ROWS[:400] + [
     "a,b,,c", ",", "", None, "one", "x  y ", "ééaé", "aaaa", "the,the theme", "é,é é",
     "thethe", "aaa aa a",

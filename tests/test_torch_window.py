@@ -16,6 +16,10 @@ from custrings_tpu_torch import column as tcol
 from custrings_tpu_torch.ops import layout as tlayout
 from custrings_tpu_torch.ops import window as twin
 
+# one intra-op thread a process: the suite runs in several worker processes
+# at once, and a torch thread pool in each oversubscribes the cores
+torch.set_num_threads(1)
+
 MIXED = [
     "hello world",
     "",
@@ -52,6 +56,36 @@ def test_ragged_gather_bytes_matches_pallas(width):
     np.testing.assert_array_equal(got.numpy(), want)
     got8 = twin.ragged_gather(torch.from_numpy(data), torch.from_numpy(starts), width)
     np.testing.assert_array_equal(got8.numpy(), want.astype(np.uint8))
+
+
+@pytest.mark.parametrize("width", [1, 8, 64, "full"])
+def test_masked_gather_matches_jax_window_view(width):
+    """K1 masked at the row lengths in the gather equals the JAX package's
+    window view (its Pallas gather in interpret mode, then the mask), as
+    bytes and as the int32 matrix the char matrix starts from: widths
+    below, at and past the longest row, with empty, null, BMP and astral
+    rows."""
+    t, j = _pair(MIXED)
+    w = tlayout.max_row_bytes(t) if width == "full" else width
+    want = np.asarray(jlayout._padded_view_pallas(j.data, j.offsets, w))
+    np.testing.assert_array_equal(want, np.asarray(jlayout._padded_view(j.data, j.offsets, w)))
+    starts, lens = t.offsets[:-1], t.lengths()
+    np.testing.assert_array_equal(twin.ragged_gather(t.data, starts, w, lens).numpy(), want)
+    got32 = twin.ragged_gather_i32(t.data, starts, w, lens)
+    assert got32.dtype == torch.int32
+    np.testing.assert_array_equal(got32.numpy(), want.astype(np.int32))
+
+
+def test_masked_gather_past_the_buffer_matches_pallas():
+    """Lengths that run past the buffer's end, and zero lengths, against the
+    Pallas gather masked on the host."""
+    data, starts = _windows()
+    lens = np.random.default_rng(8).integers(0, 700, starts.shape[0]).astype(np.int32)
+    lens[:3] = 0
+    raw = np.asarray(jwin.ragged_gather(jnp.asarray(data), jnp.asarray(starts), 513))
+    want = np.where(np.arange(513)[None, :] < lens[:, None], raw, 0).astype(np.uint8)
+    got = twin.ragged_gather(torch.from_numpy(data), torch.from_numpy(starts), 513, torch.from_numpy(lens))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("width", [4, 64, 98])
