@@ -13,9 +13,19 @@ Phases, each printing one JSON line:
                call's time; K3 at every form and edge the main path gives
                it (cumsum0, row ids, int8, lengths 1, 4097 and 8193,
                unaligned views, a wrapping sum), each with its own bound
+               K1b (window_words) at the encode's four shapes, a 7-word
+               tail, starts at every residue mod 16, a data[1:] view and
+               caps of 4k+1..4k+3; K4e (route_expand) at the grow
+               replace's and the split's own calls, the padded grid, a
+               mixed u8 + i32 + i64 call, garbage dist on dead lanes,
+               targets at out_cap - 1, out_cap and past, an all-dead
+               live and out_cap below n
      scan    — 100 back-to-back K3 calls exact against their plain
                versions (no scratch state leaks between calls), and
                torch.profiler showing one scan kernel per cumsum0 call
+     launch checks — torch.profiler: each expand_stream call runs one
+               expand_firsts and one expand_kernel and nothing else (no
+               fill), each ragged_gather_words call one window_words
      views   — the two padded-view routes at the slice's widths: the
                K1 window gather masked at the lengths (the route every
                size takes) against the streaming view (K4c/K4e, the
@@ -506,6 +516,8 @@ def _kernel_phase(torch, col, width):
     first_b = spans[2][1]._all_plain(chars, nch, torch.ones_like(valid), 1, zero, False)[1][:, 0]
     k2_end = torch.where(k2_hits, first_b + 1, row_end)
     sum_shapes, max_shapes = _scan_shapes(torch, col, lens, signed)
+    words = _word_shapes(torch, col, width)
+    expansions = _expand_shapes(torch, col, width, live, dist)
     # the bytes K1 must read with the length mask: each row's first
     # min(length, width) bytes, its start and its length
     inside = int(lens.clamp(max=width).sum())
@@ -531,11 +543,7 @@ def _kernel_phase(torch, col, width):
            lambda: window._gather_plain(col.data, starts, width).to(torch.int32))],
          (inside + 8 * n + 4 * n * width, 0), None),
         ("window_words", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170",
-         [(f"i32[{n},{(width - 64) // 4}] tails past 64", lambda: window.ragged_gather_words(col.data, starts + 64, width - 64),
-           lambda: window._words_plain(col.data, starts + 64, width - 64)),
-          (f"i32[{n},16] tails past 256", lambda: window.ragged_gather_words(col.data, starts + 256, 64),
-           lambda: window._words_plain(col.data, starts + 256, 64))],
-         (n * ((width - 64) + 4 + (width - 64)), 0), None),
+         words, words[0][3]["bound"], None),
         ("route_compact", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:290",
          [(f"u8[{cap}] width-64 view", lambda: route.compact_stream(keep, [col.data], k0)[0][0],
            lambda: route._compact_plain(keep, k0, col.data)),
@@ -543,9 +551,7 @@ def _kernel_phase(torch, col, width):
            lambda: route._compact_plain(first, k0_first, perm))],
          (cap * (1 + 4 + 1 + 1), 0), lambda: torch.masked_select(col.data, keep)),
         ("route_expand", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:448",
-         [(f"u8[{cap}] -> u8[{out_cap}]", lambda: _expanded(route.expand_stream(live, dist, [col.data], out_cap)),
-           lambda: route._expand_plain(live, dist, col.data, out_cap, True))],
-         (cap * (1 + 4 + 1) + out_cap * 2, 0), None),
+         expansions, expansions[0][3]["bound"], None),
         ("nfa_bits", "csrc/nfa_bits.cu", "custrings_tpu/regex/pallas_nfa.py:418",
          [(f"{PATTERN} unanchored [{n},{width}]",
            lambda: nfa._matches_bits(chars, nch, False),
@@ -560,6 +566,181 @@ def _kernel_phase(torch, col, width):
          span_cases, span_bound, None),
     ]
     return _measure(torch, cases, slow=("nfa_bits",), one_plain=("span_all",))
+
+
+def _words_bound(rows: int, wq: int):
+    """(bytes, ops) of ragged_gather_words over rows windows of wq words:
+    each window read once, the output written, a start read a row."""
+    return rows * (4 * wq + 4 * wq + 4), 0
+
+
+def _word_shapes(torch, col, width):
+    """K1b's shapes, each with its own bound: the encode's four (the 64-
+    and 256-byte key words from the row starts, the tails past 64 and past
+    256 at the full width), a 7-word tail (a partial last 16-byte store),
+    starts at every residue mod 16, a data[1:] view, and buffers whose cap
+    is 4k+1..4k+3 with windows running past it."""
+    from custrings_tpu_torch.ops import window
+
+    n, cap = col.size, col.capacity
+    starts = col.offsets[:-1]
+    g = torch.Generator(device="cpu").manual_seed(11)
+    res = ((torch.randint(0, (cap - 400) // 16, (n,), generator=g) * 16
+            + torch.arange(n) % 16).to(torch.int32).cuda())
+    edge = torch.arange(4096, dtype=torch.int32) % 130
+    out = []
+
+    def case(label, data, st, w):
+        rows, wq = st.shape[0], -(-w // 4)
+        return (f"i32[{rows},{wq}] {label}", lambda: window.ragged_gather_words(data, st, w),
+                lambda: window._words_plain(data, st, w), {"bound": _words_bound(rows, wq)})
+
+    out.append(case("key words 64 (row starts)", col.data, starts, 64))
+    out.append(case("key words 256 (row starts)", col.data, starts, 256))
+    out.append(case("tails past 64", col.data, starts + 64, width - 64))
+    out.append(case("tails past 256", col.data, starts + 256, width - 256))
+    out.append(case("28-byte tails", col.data, starts + 256, 28))
+    out.append(case("starts at every residue mod 16", col.data, res, 64))
+    out.append(case("data[1:] view", col.data[1:], starts, 64))
+    for r in (1, 2, 3):
+        m = cap // 4 * 4 - 4 + r
+        out.append(case(f"cap {m} (4k+{r}), windows past it", col.data[:m],
+                        (m - 100 + edge).cuda(), 64))
+    return out
+
+
+def _captured_expansions(torch, col):
+    """K4e's inputs as the main path passes them: the calls of
+    shift_compact.expand_to made by modify.replace_literal(col, "the",
+    "THEE") (the grow replace) and split.split_record(col, " "),
+    recorded by wrapping it; ([grow calls], [split calls]), each call
+    (live, dist, planes, out_cap, want_placed)."""
+    from custrings_tpu_torch.ops import modify, shift_compact, split
+
+    seen = []
+    expand_to = shift_compact.expand_to
+
+    def recorded(live, dist, arrays, out_cap, *rest):
+        seen.append((live, dist, list(arrays), out_cap, rest[0] if rest else True))
+        return expand_to(live, dist, arrays, out_cap, *rest)
+
+    shift_compact.expand_to = recorded
+    try:
+        modify.replace_literal(col, "the", "THEE")
+        grow = list(seen)
+        seen.clear()
+        split.split_record(col, " ")
+        splits = list(seen)
+    finally:
+        shift_compact.expand_to = expand_to
+    return grow, splits
+
+
+def _expand_bound(live, planes, out_cap: int, want_placed: bool):
+    """(bytes, ops) of expand_stream: live (1) read per input lane, dist
+    (4) and every plane's element per live lane (a dead lane's need not
+    be read); every plane's element and, when asked, placed (1) written
+    per output slot."""
+    esum = sum(a.element_size() for a in planes)
+    nlive = int(live.sum())
+    return live.shape[0] + nlive * (4 + esum) + out_cap * (esum + int(want_placed)), 0
+
+
+def _expand_shapes(torch, col, width, live_grid, dist_grid):
+    """K4e's shapes, each with its own bound: the grow replace's real
+    inputs (with placed) first, the split's (int32 on the token domain,
+    without placed), the padded grid, a mixed u8 + i32 + i64 call, dead
+    lanes carrying garbage dist, targets at out_cap - 1, at out_cap and
+    past it, an all-dead live, and out_cap below n."""
+    from custrings_tpu_torch.ops import route
+
+    grow, splits = _captured_expansions(torch, col)
+    if len(grow) != 1 or not splits:
+        raise AssertionError(f"expected one grow and some split expansions: {len(grow)}, {len(splits)}")
+    g = torch.Generator(device="cpu").manual_seed(13)
+    out = []
+
+    def case(label, live, dist, planes, out_cap, want):
+        def kern():
+            return _expanded(route.expand_stream(live, dist, planes, out_cap, want))
+
+        def plain():
+            return _expanded(route._expand_plain(live.bool(), dist.to(torch.int32), planes, out_cap, want))
+
+        names = "+".join(str(a.dtype).split(".")[-1] for a in planes)
+        return (f"{names}[{live.shape[0]}] -> [{out_cap}]{' with placed' if want else ''} {label}",
+                kern, plain, {"bound": _expand_bound(live, planes, out_cap, want)})
+
+    live, dist, planes, bcap, want = grow[0]
+    out.append(case("grow replace", live, dist, planes, bcap, want))
+    for k, (sl, sd, sp, scap, sw) in enumerate(splits):
+        out.append(case(f"split call {k}", sl, sd, sp, scap, sw))
+    out.append(case("padded grid", live_grid, dist_grid, [col.data], col.size * width, True))
+    n = live.shape[0]
+    mixed = [planes[0], planes[0].to(torch.int32) * 7 - 3,
+             torch.arange(n, dtype=torch.int64, device=live.device) << 20]
+    out.append(case("mixed planes", live, dist, mixed, bcap, True))
+    garbage = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=g, dtype=torch.int32).cuda()
+    out.append(case("dead lanes with garbage dist", live, torch.where(live, dist, garbage), planes, bcap, True))
+    k = 1 << 20
+    j = torch.arange(k, dtype=torch.int32, device=live.device)
+    edge_dist = torch.where(j < k - 10, 3, 3 + (j - (k - 10)) * 5)
+    edge_vals = (j % 251).to(torch.uint8)
+    out.append(case("targets at out_cap - 1, out_cap and past", torch.ones(k, dtype=torch.bool, device=live.device),
+                    edge_dist, [edge_vals], k - 7, True))
+    out.append(case("all dead", torch.zeros(k, dtype=torch.bool, device=live.device),
+                    torch.randint(-(1 << 31), (1 << 31) - 1, (k,), generator=g, dtype=torch.int32).cuda(),
+                    [edge_vals], k, True))
+    out.append(case("out_cap below n", live, dist, planes, n // 2, True))
+    return out
+
+
+def _launch_checks(torch, col, width):
+    """torch.profiler over main-path calls of K4e and K1b: each
+    expand_stream call (with and without placed, one or three planes)
+    must run one expand_firsts and one expand_kernel and nothing else (no
+    fill), each ragged_gather_words call one window_words kernel and
+    nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from custrings_tpu_torch.ops import route, window
+
+    grow, splits = _captured_expansions(torch, col)
+    live, dist, planes, bcap, _ = grow[0]
+    sl, sd, sp, scap, _ = splits[-1]
+    mixed = [planes[0], planes[0].to(torch.int32), planes[0].to(torch.int64)]
+    calls = [lambda: route.expand_stream(live, dist, planes, bcap, True),
+             lambda: route.expand_stream(sl, sd, sp, scap, False),
+             lambda: route.expand_stream(live, dist, mixed, bcap, False)]
+    starts = col.offsets[:-1]
+    s64, s256 = starts + 64, starts + 256
+    words = [lambda: window.ragged_gather_words(col.data, starts, 64),
+             lambda: window.ragged_gather_words(col.data, s64, width - 64),
+             lambda: window.ragged_gather_words(col.data, s256, width - 256)]
+    cuda = torch.autograd.DeviceType.CUDA
+    found = {}
+    for name, fns in (("expand_stream", calls), ("ragged_gather_words", words)):
+        for fn in fns:
+            fn()  # first use
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                fn()
+            torch.cuda.synchronize()
+        found[name] = {e.key: e.count for e in prof.key_averages()
+                       if e.device_type == cuda and e.self_device_time_total > 0}
+    want = {"expand_stream": {"expand_firsts": len(calls), "expand_kernel": len(calls)},
+            "ragged_gather_words": {"window_words": len(words)}}
+    bad = {}
+    for name, kinds in want.items():
+        counts = {k: sum(c for key, c in found[name].items() if k in key) for k in kinds}
+        others = {key: c for key, c in found[name].items() if not any(k in key for k in kinds)}
+        if counts != kinds or others:
+            bad[name] = found[name]
+    _emit({"phase": "launch checks", "expand_stream_calls": len(calls),
+           "ragged_gather_words_calls": len(words), "device_kernels": found})
+    if bad:
+        raise AssertionError(f"calls that launched other kernels than one of theirs: {bad}")
 
 
 def _scan_shapes(torch, col, lens, signed):
@@ -782,8 +963,9 @@ def _kernel_phase_rest(torch, col, logs_col, err_starts):
 
 
 def _expanded(res):
-    (out,), placed = res
-    return out, placed
+    """expand_stream's (planes, placed or None) as one flat tuple."""
+    outs, placed = res
+    return (*outs, placed) if placed is not None else tuple(outs)
 
 
 def _view_phase(torch, col, width):
@@ -1155,6 +1337,7 @@ def main() -> int:
 
     recs = _kernel_phase(torch, col, width)
     _scan_checks(torch, col)
+    _launch_checks(torch, col, width)
 
     t0 = time.perf_counter()
     logs = make_logs(LOG_ROWS, seed=2)

@@ -125,7 +125,7 @@ def _expand_to_grid(data, offsets, width: int, cap: int) -> torch.Tensor:
     vr = torch.arange(nrows, dtype=torch.int32, device=data.device) * width - offsets[:-1]
     dist = segments.broadcast_rows_to_bytes(vr, offsets, cap)
     live = torch.arange(cap, dtype=torch.int32, device=data.device) < offsets[-1]
-    (flat,), _ = expand_stream(live, dist, [data], out_cap=nrows * width)
+    (flat,), _ = expand_stream(live, dist, [data], out_cap=nrows * width, want_placed=False)
     return flat.view(nrows, width)
 
 

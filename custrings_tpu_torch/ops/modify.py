@@ -154,8 +154,8 @@ def _replace_write_route(col: StringColumn, plan, r, m: int, rl: int, bcap: int)
     # gaps are k adjacent rl-byte replacement zones: index mod rl
     rep = _small_lookup(r, (q - last_placed - 1) % rl, rl)
     in_rep = ~placed & (q < out_offsets[-1])
-    zero = torch.zeros((), dtype=torch.uint8, device=dev)
-    return torch.where(in_rep, rep, torch.where(placed, moved, zero)), out_offsets
+    # moved is 0 wherever nothing was placed
+    return torch.where(in_rep, rep, moved), out_offsets
 
 
 def _fit(data: torch.Tensor, n: int) -> torch.Tensor:
@@ -197,8 +197,7 @@ def _replace_grow_stream(col: StringColumn, p, r, m: int, rl: int, bcap: int):
     else:
         last_placed = segments.cummax(torch.where(placed, q, -1))
         rep = _small_lookup(r, m + (q - last_placed - 1) % g, rl)
-    zero = torch.zeros((), dtype=torch.uint8, device=dev)
-    return torch.where(in_gap, rep, torch.where(placed, moved, zero)), out_offsets
+    return torch.where(in_gap, rep, moved), out_offsets
 
 
 def _replace_full(col: StringColumn, p, r, m: int, rl: int, bordered: bool, n: int, bcap: int):

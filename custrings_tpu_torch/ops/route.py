@@ -3,9 +3,13 @@
 Port of `custrings_tpu/ops/pallas_route.py` (`compact_stream` with the TPU
 kernel `_compact_p` / `_compact_kernel_factory`, `expand_stream` with
 `_expand_p` / `_expand_kernel_factory`).  The CUDA kernels are
-`csrc/route.cu`: one scatter per element, since Hopper stores to any
-address in one instruction and the TPU's in-register routing network and
-VMEM ring buffer exist only because the TPU has no fast scatter.
+`csrc/route.cu`: the compaction is one scatter per element, since Hopper
+stores to any address in one instruction and the TPU's in-register
+routing network and VMEM ring buffer exist only because the TPU has no
+fast scatter; the expansion is output-driven (a pre-pass finds each input
+tile's first live target, then each block assembles one output chunk of
+every plane in shared memory and writes it once), so its outputs are
+allocated without a fill and every plane of a call moves in one launch.
 
     compact_stream(keep, arrays)           kept elements stably to the
                                            front, zeros after
@@ -85,43 +89,72 @@ def compact_stream(keep: torch.Tensor, arrays, k0: torch.Tensor | None = None):
     return [_compact_launch(keep8, k0, a) for a in planes], k0
 
 
-def _expand_plain(live, dist, a, out_cap, with_placed):
-    t = torch.arange(live.shape[0], dtype=torch.int64, device=a.device) + dist.to(torch.int64)
+def _expand_plain(live, dist, planes, out_cap, want_placed):
+    t = torch.arange(live.shape[0], dtype=torch.int64, device=live.device) + dist.to(torch.int64)
     ok = live & (t >= 0) & (t < out_cap)
     tgt = t[ok]
-    out = torch.zeros(out_cap, dtype=a.dtype, device=a.device)
-    out[tgt] = a[ok]
+    outs = []
+    for a in planes:
+        out = torch.zeros(out_cap, dtype=a.dtype, device=a.device)
+        out[tgt] = a[ok]
+        outs.append(out)
     placed = None
-    if with_placed:
-        placed = torch.zeros(out_cap, dtype=torch.bool, device=a.device)
+    if want_placed:
+        placed = torch.zeros(out_cap, dtype=torch.bool, device=live.device)
         placed[tgt] = True
-    return out, placed
+    return outs, placed
 
 
-def _expand_launch(live, dist, a, out_cap, with_placed):
+#: the expansion's ticket per (device, stream): one uint32 that the
+#: pre-pass's last block hands back as 0, so it is filled once, not per call
+_TICKETS: dict = {}
+
+
+def _ticket(device, stream: int) -> torch.Tensor:
+    key = (device, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def _expand_launch(live, dist, planes, out_cap, want_placed):
+    import ctypes
+
     n = live.shape[0]
-    out = torch.zeros(out_cap, dtype=a.dtype, device=a.device)
-    placed = torch.zeros(out_cap, dtype=torch.bool, device=a.device) if with_placed else None
-    if n == 0 or out_cap == 0:
-        return out, placed
-    for t in (live, dist, a):
+    dev = live.device
+    outs = [torch.empty(out_cap, dtype=a.dtype, device=dev) for a in planes]
+    placed = torch.empty(out_cap, dtype=torch.bool, device=dev) if want_placed else None
+    if out_cap == 0:
+        return outs, placed
+    for t in (live, dist, *planes):
         kernels.require_cuda(t, "expand_stream")
-    err = kernels.lib().cs_expand(
-        live.data_ptr(), dist.data_ptr(), a.data_ptr(), n, out_cap, _ELEM_BYTES[a.dtype],
-        out.data_ptr(), placed.data_ptr() if with_placed else None, kernels.stream_ptr(a),
+    lib = kernels.lib()
+    stream = kernels.stream_ptr(live)
+    scratch = torch.empty(lib.cs_expand_scratch_words(n), dtype=torch.int64, device=dev)
+    k = len(planes)
+    err = lib.cs_expand(
+        live.data_ptr(), dist.data_ptr(), n, out_cap, k,
+        (ctypes.c_void_p * k)(*[a.data_ptr() for a in planes]),
+        (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
+        (ctypes.c_int * k)(*[_ELEM_BYTES[a.dtype] for a in planes]),
+        placed.data_ptr() if want_placed else None, scratch.data_ptr(),
+        _ticket(dev, stream).data_ptr(), stream,
     )
     kernels.check(err, "expand_stream")
     kernels.LAUNCHES["route_expand"] += 1
-    return out, placed
+    return outs, placed
 
 
-def expand_stream(live: torch.Tensor, dist: torch.Tensor, arrays, out_cap: int | None = None):
+def expand_stream(live: torch.Tensor, dist: torch.Tensor, arrays, out_cap: int | None = None,
+                  want_placed: bool = True):
     """Monotone expansion: live element j moves right to j + dist[j].
 
     live: bool[N]; dist: int32[N], >= 0 and nondecreasing over live lanes
-    (so no two live elements share a target); arrays: 1-D planes of
-    length N.  Elements whose target is >= out_cap (default N) drop out.
-    Returns (moved planes of out_cap, placed bool[out_cap])."""
+    (so no two live elements share a target; dead lanes' dist is never
+    read); arrays: 1-D planes of length N, of 1, 4 or 8 bytes an element
+    (mixed), at most 8.  Elements whose target is >= out_cap (default N)
+    drop out; every other slot is 0.  Returns (moved planes of out_cap,
+    placed bool[out_cap], or None when want_placed is False)."""
     n = live.shape[0]
     m = n if out_cap is None else int(out_cap)
     live8 = _flag(live, n, "expand_stream")
@@ -129,11 +162,8 @@ def expand_stream(live: torch.Tensor, dist: torch.Tensor, arrays, out_cap: int |
         raise ValueError(f"expand_stream: dist must be 1-D of length {n}")
     dist = dist.to(torch.int32).contiguous()
     planes = [_plane(a, n, live.device, "expand_stream") for a in arrays]
-    if not planes:
-        raise ValueError("expand_stream: no planes to move")
+    if not planes or len(planes) > 8:
+        raise ValueError("expand_stream: expected 1 to 8 planes to move")
     if not live.is_cuda:
-        fn, live_m = _expand_plain, live8.bool()
-    else:
-        fn, live_m = _expand_launch, live8
-    outs = [fn(live_m, dist, a, m, i == 0) for i, a in enumerate(planes)]
-    return [o for o, _ in outs], outs[0][1]
+        return _expand_plain(live8.bool(), dist, planes, m, want_placed)
+    return _expand_launch(live8, dist, planes, m, want_placed)

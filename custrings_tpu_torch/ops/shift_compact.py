@@ -27,13 +27,15 @@ def compact_arrays(keep: torch.Tensor, arrays):
     return compact_stream(keep, arrays)
 
 
-def expand_to(live: torch.Tensor, dist: torch.Tensor, arrays, out_cap: int):
+def expand_to(live: torch.Tensor, dist: torch.Tensor, arrays, out_cap: int,
+              want_placed: bool = True):
     """Move live element j right to j + dist[j] in outputs of out_cap
     slots (dist >= 0, nondecreasing over live lanes).  Returns (moved
-    list, placed bool[out_cap]); unplaced slots are zero."""
-    return expand_stream(live, dist, arrays, out_cap=out_cap)
+    list, placed bool[out_cap], or None when want_placed is False);
+    unplaced slots are zero."""
+    return expand_stream(live, dist, arrays, out_cap=out_cap, want_placed=want_placed)
 
 
-def expand_arrays(live: torch.Tensor, dist: torch.Tensor, arrays):
+def expand_arrays(live: torch.Tensor, dist: torch.Tensor, arrays, want_placed: bool = True):
     """expand_to with the output the size of the input."""
-    return expand_to(live, dist, arrays, live.shape[0])
+    return expand_to(live, dist, arrays, live.shape[0], want_placed)

@@ -156,7 +156,7 @@ def _delim_extents_stream(col: StringColumn, tcap, delim: str, maxsplit: int, ta
     (cd, ct), k0l = shift_compact.compact_arrays(live, [dpos, t_end])
     live2 = q < k0l[-1]
     dist = torch.where(live2, ct - q, 0)
-    (ends, starts0), _ = shift_compact.expand_to(live2, dist, [cd, cd + m], tcap + 1)
+    (ends, starts0), _ = shift_compact.expand_to(live2, dist, [cd, cd + m], tcap + 1, False)
     # starts0 holds the value for slot t_end; the token after the
     # delimiter is slot t_end + 1
     starts = torch.zeros(tcap + 1, dtype=torch.int32, device=dev)
@@ -171,7 +171,7 @@ def _token_ends(col: StringColumn, dvals, ddist, ndel, k0, tok_off, tcap: int):
     their token slots by ddist (K4e), each valid row's last token ends at
     its kept count, and empty slots take the running max."""
     q = torch.arange(tcap, dtype=torch.int32, device=col.device)
-    (T0,), _ = shift_compact.expand_arrays(q < ndel, ddist, [dvals])
+    (T0,), _ = shift_compact.expand_arrays(q < ndel, ddist, [dvals], False)
     T = torch.cat([T0, torch.zeros(1, dtype=torch.int32, device=col.device)])
     last = torch.where(col.validity, tok_off[1:] - 1, tcap).to(torch.int64)
     T[last] = k0[col.offsets[1:].to(torch.int64)]

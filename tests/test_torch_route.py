@@ -97,6 +97,72 @@ def test_expand_stream_out_cap_matches_pallas():
         np.testing.assert_array_equal(placed.numpy(), np.asarray(wpl))
 
 
+def _live_dist(n, seed, garbage):
+    """live bool[n] and dist int32[n], nondecreasing over the live lanes;
+    with `garbage` the dead lanes carry unordered values (negative and
+    past any output), as the grow writer's padding and the split's
+    leftover lanes do."""
+    rng = np.random.default_rng(seed)
+    live = rng.random(n) < 0.6
+    dist = np.maximum.accumulate(rng.integers(0, 3, n)).astype(np.int32)
+    if garbage:
+        dist = np.where(live, dist, rng.integers(-(2**31), 2**31 - 1, n)).astype(np.int32)
+    return live, dist
+
+
+def _jax_expand(live, dist, planes, out_cap):
+    """The Pallas expansion (interpret mode) with the dead lanes'
+    distances forward-filled, as custrings_tpu's shift_compact does
+    before its kernel route."""
+    dmono = np.maximum.accumulate(np.where(live, dist, 0)).astype(np.int32)
+    return jroute.expand_stream(jnp.asarray(live), jnp.asarray(dmono), [jnp.asarray(a) for a in planes],
+                                out_cap=out_cap, tile=256, align=512)
+
+
+@pytest.mark.parametrize("garbage", [False, True])
+def test_expand_stream_mixed_planes_match_pallas(garbage):
+    """One call moving uint8, int32 and int64 planes, with dead lanes'
+    dist ordered or garbage, against the Pallas kernel: the int64 plane
+    against the int32 one's result shifted."""
+    n = 3000
+    live, dist = _live_dist(n, 5, garbage)
+    rng = np.random.default_rng(6)
+    v8 = rng.integers(0, 256, n).astype(np.uint8)
+    v32 = rng.integers(-(2**30), 2**30, n).astype(np.int32)
+    (w8, w32), wpl = _jax_expand(live, dist, [v8, v32], n)
+    (g8, g32, g64), placed = troute.expand_stream(
+        torch.from_numpy(live), torch.from_numpy(dist),
+        [torch.from_numpy(v8), torch.from_numpy(v32), torch.from_numpy(v32.astype(np.int64) << 20)])
+    np.testing.assert_array_equal(placed.numpy(), np.asarray(wpl))
+    np.testing.assert_array_equal(g8.numpy(), np.asarray(w8))
+    np.testing.assert_array_equal(g32.numpy(), np.asarray(w32))
+    np.testing.assert_array_equal(g64.numpy(), np.asarray(w32).astype(np.int64) << 20)
+
+
+@pytest.mark.parametrize("want_placed", [True, False])
+@pytest.mark.parametrize("out_cap", ["n // 2", "n", "2n"])
+def test_expand_stream_out_cap_and_placed_match_pallas(out_cap, want_placed):
+    """out_cap below, at and above n, with dead lanes carrying garbage
+    dist; without placed the planes equal the call with it and placed is
+    None."""
+    n = 2000
+    m = {"n // 2": n // 2, "n": n, "2n": 2 * n}[out_cap]
+    live, dist = _live_dist(n, 9, True)
+    vals = np.random.default_rng(10).integers(0, 256, n).astype(np.uint8)
+    (want,), wpl = _jax_expand(live, dist, [vals], m)
+    args = (torch.from_numpy(live), torch.from_numpy(dist), [torch.from_numpy(vals)], m)
+    (got,), placed = troute.expand_stream(*args, want_placed=want_placed)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if want_placed:
+        np.testing.assert_array_equal(placed.numpy(), np.asarray(wpl))
+    else:
+        assert placed is None
+        (with_placed,), _ = troute.expand_stream(*args)
+        assert torch.equal(got, with_placed)
+        (shifted,), none = tshift.expand_to(*args, want_placed=False)
+        assert none is None and torch.equal(shifted, got)
+
+
 def test_route_refuses_bad_planes():
     keep = torch.ones(4, dtype=torch.bool)
     with pytest.raises(ValueError, match="plane"):

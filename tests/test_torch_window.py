@@ -97,6 +97,34 @@ def test_ragged_gather_words_matches_pallas(width):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _word_case(case):
+    """(data, lo, hi, starts) of a words-gather case, the buffer being
+    data[lo:hi]: starts at every residue mod 16, windows running past a
+    cap of 4k+1..4k+3 (some starting past it), or a data[1:] view."""
+    rng = np.random.default_rng(17)
+    data = rng.integers(0, 256, 997, dtype=np.uint8)
+    if case == "residues":
+        return data, 0, 997, (rng.integers(0, 50, 48) * 16 + np.arange(48) % 16).astype(np.int32)
+    if case == "data[1:]":
+        return data, 1, 997, (np.arange(48) * 19 % 900).astype(np.int32)
+    cap = 4 * 200 + int(case[-1])  # "cap 4k+r"
+    return data, 0, cap, (cap - 60 + np.arange(48) * 3).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["residues", "cap 4k+1", "cap 4k+2", "cap 4k+3", "data[1:]"])
+@pytest.mark.parametrize("width", [4, 28, 64, 256])
+def test_ragged_gather_words_edges_match_pallas(width, case):
+    """The words gather at the encode's widths (and a 7-word one) with
+    starts at every residue mod 16, windows past a cap that is not a
+    multiple of 4, and a data[1:] view, against the Pallas kernel."""
+    data, lo, hi, starts = _word_case(case)
+    want = np.asarray(jwin.ragged_gather_words(jnp.asarray(data[lo:hi].copy()), jnp.asarray(starts), width))
+    view = torch.from_numpy(data)[lo:hi]
+    got = twin.ragged_gather_words(view, torch.from_numpy(starts), width)
+    assert got.dtype == torch.int32 and got.shape == (48, -(-width // 4))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("pallas_window", ["0", "1"])
 def test_padded_view_and_char_matrix_parity(monkeypatch, pallas_window):
     monkeypatch.setenv("CUSTRINGS_PALLAS_WINDOW", pallas_window)
