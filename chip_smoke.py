@@ -12,10 +12,11 @@ Phases, each printing one JSON line:
                where one PyTorch call computes the same function, that
                call's time; K3 at every form and edge the main path gives
                it (cumsum0, row ids, int8, lengths 1, 4097 and 8193,
-               unaligned views, a wrapping sum), each with its own bound
-               K1b (window_words) at the encode's four shapes, a 7-word
-               tail, starts at every residue mod 16, a data[1:] view and
-               caps of 4k+1..4k+3; K4e (route_expand) at the grow
+               unaligned views, a wrapping sum), each with its own bound;
+               K1b (window_words) at the encode's own calls (each bound
+               counting the union of its windows), a 7-word tail, starts
+               at every residue mod 16, a data[1:] view and caps of
+               4k+1..4k+3; K4e (route_expand) at the grow
                replace's and the split's own calls, the padded grid, a
                mixed u8 + i32 + i64 call, garbage dist on dead lanes,
                targets at out_cap - 1, out_cap and past, an all-dead
@@ -24,8 +25,9 @@ Phases, each printing one JSON line:
                versions (no scratch state leaks between calls), and
                torch.profiler showing one scan kernel per cumsum0 call
      launch checks — torch.profiler: each expand_stream call runs one
-               expand_firsts and one expand_kernel and nothing else (no
-               fill), each ragged_gather_words call one window_words
+               expand_firsts, one expand_kernel and one fill of one word
+               (its ticket) and no other fill; each of the encode's
+               ragged_gather_words calls one window_words
      views   — the two padded-view routes at the slice's widths: the
                K1 window gather masked at the lengths (the route every
                size takes) against the streaming view (K4c/K4e, the
@@ -516,7 +518,7 @@ def _kernel_phase(torch, col, width):
     first_b = spans[2][1]._all_plain(chars, nch, torch.ones_like(valid), 1, zero, False)[1][:, 0]
     k2_end = torch.where(k2_hits, first_b + 1, row_end)
     sum_shapes, max_shapes = _scan_shapes(torch, col, lens, signed)
-    words = _word_shapes(torch, col, width)
+    words = _word_shapes(torch, col)
     expansions = _expand_shapes(torch, col, width, live, dist)
     # the bytes K1 must read with the length mask: each row's first
     # min(length, width) bytes, its start and its length
@@ -568,18 +570,63 @@ def _kernel_phase(torch, col, width):
     return _measure(torch, cases, slow=("nfa_bits",), one_plain=("span_all",))
 
 
-def _words_bound(rows: int, wq: int):
-    """(bytes, ops) of ragged_gather_words over rows windows of wq words:
-    each window read once, the output written, a start read a row."""
-    return rows * (4 * wq + 4 * wq + 4), 0
+def _words_bound(torch, data, starts, width: int):
+    """(bytes, ops) of ragged_gather_words(data, starts, width): the union
+    of the windows read once (neighbouring windows overlap where a window
+    runs past its row), clipped to the buffer, the output written and a
+    start read a row.  With the windows sorted by start (all of one
+    width), each adds the bytes from its start to the next one's or to its
+    own end, whichever comes first."""
+    rows, wb = starts.shape[0], 4 * -(-width // 4)
+    if rows == 0:
+        return 0, 0
+    cap = data.shape[0]
+    st = torch.sort(starts.to(torch.int64)).values
+    lo, hi = st.clamp(0, cap), (st + wb).clamp(0, cap)
+    upto = torch.minimum(hi, torch.cat([lo[1:], hi[-1:]]))
+    read = int((upto - lo).clamp(min=0).sum())
+    return read + rows * (wb + 4), 0
 
 
-def _word_shapes(torch, col, width):
-    """K1b's shapes, each with its own bound: the encode's four (the 64-
-    and 256-byte key words from the row starts, the tails past 64 and past
-    256 at the full width), a 7-word tail (a partial last 16-byte store),
-    starts at every residue mod 16, a data[1:] view, and buffers whose cap
-    is 4k+1..4k+3 with windows running past it."""
+def _captured_word_gathers(col):
+    """K1b's inputs as the main path passes them: the ragged_gather_words
+    calls of unique.dictionary_encode(col), recorded by wrapping the name
+    in ops/array.py (the key words, from the row starts) and in
+    ops/unique.py (the tails past the key prefix, from the sorted
+    rows' starts and from the group representatives'); [(label, data,
+    starts, width)] in call order."""
+    from custrings_tpu_torch.ops import array, unique, window
+
+    seen = []
+    gather = window.ragged_gather_words
+    prefix = [0]
+
+    def key_words(data, starts, width):
+        prefix[0] = width
+        seen.append((f"key words {width} (row starts)", data, starts, width))
+        return gather(data, starts, width)
+
+    def tails(data, starts, width):
+        k = sum(label.startswith(f"tails past {prefix[0]} ") for label, *_ in seen)
+        who = ("sorted rows", "group representatives")[min(k, 1)]
+        seen.append((f"tails past {prefix[0]} ({who})", data, starts, width))
+        return gather(data, starts, width)
+
+    array.ragged_gather_words, unique.ragged_gather_words = key_words, tails
+    try:
+        unique.dictionary_encode(col)
+    finally:
+        array.ragged_gather_words = unique.ragged_gather_words = gather
+    return seen
+
+
+def _word_shapes(torch, col):
+    """K1b's shapes, each with its own bound: the encode's own calls
+    (captured: the 64- and 256-byte key words from the row starts, the
+    tails past 64 and past 256 from the sorted rows' and the group
+    representatives' starts), a 7-word tail (a partial last 16-byte
+    store), starts at every residue mod 16, a data[1:] view, and buffers
+    whose cap is 4k+1..4k+3 with windows running past it."""
     from custrings_tpu_torch.ops import window
 
     n, cap = col.size, col.capacity
@@ -588,17 +635,16 @@ def _word_shapes(torch, col, width):
     res = ((torch.randint(0, (cap - 400) // 16, (n,), generator=g) * 16
             + torch.arange(n) % 16).to(torch.int32).cuda())
     edge = torch.arange(4096, dtype=torch.int32) % 130
-    out = []
+    encode = _captured_word_gathers(col)
+    if len(encode) < 3 or not encode[0][0].startswith("key words 64"):
+        raise AssertionError(f"expected the encode's key words 64 and its tails: {[c[0] for c in encode]}")
 
     def case(label, data, st, w):
         rows, wq = st.shape[0], -(-w // 4)
         return (f"i32[{rows},{wq}] {label}", lambda: window.ragged_gather_words(data, st, w),
-                lambda: window._words_plain(data, st, w), {"bound": _words_bound(rows, wq)})
+                lambda: window._words_plain(data, st, w), {"bound": _words_bound(torch, data, st, w)})
 
-    out.append(case("key words 64 (row starts)", col.data, starts, 64))
-    out.append(case("key words 256 (row starts)", col.data, starts, 256))
-    out.append(case("tails past 64", col.data, starts + 64, width - 64))
-    out.append(case("tails past 256", col.data, starts + 256, width - 256))
+    out = [case(label, data, st, w) for label, data, st, w in encode]
     out.append(case("28-byte tails", col.data, starts + 256, 28))
     out.append(case("starts at every residue mod 16", col.data, res, 64))
     out.append(case("data[1:] view", col.data[1:], starts, 64))
@@ -695,12 +741,13 @@ def _expand_shapes(torch, col, width, live_grid, dist_grid):
     return out
 
 
-def _launch_checks(torch, col, width):
+def _launch_checks(torch, col):
     """torch.profiler over main-path calls of K4e and K1b: each
     expand_stream call (with and without placed, one or three planes)
-    must run one expand_firsts and one expand_kernel and nothing else (no
-    fill), each ragged_gather_words call one window_words kernel and
-    nothing else."""
+    must run one expand_firsts, one expand_kernel and one fill of a
+    single word (the pre-pass's ticket) and nothing else, so no fill of
+    an output; each of the encode's ragged_gather_words calls one
+    window_words kernel and nothing else."""
     from torch.profiler import ProfilerActivity, profile
 
     from custrings_tpu_torch.ops import route, window
@@ -712,35 +759,43 @@ def _launch_checks(torch, col, width):
     calls = [lambda: route.expand_stream(live, dist, planes, bcap, True),
              lambda: route.expand_stream(sl, sd, sp, scap, False),
              lambda: route.expand_stream(live, dist, mixed, bcap, False)]
-    starts = col.offsets[:-1]
-    s64, s256 = starts + 64, starts + 256
-    words = [lambda: window.ragged_gather_words(col.data, starts, 64),
-             lambda: window.ragged_gather_words(col.data, s64, width - 64),
-             lambda: window.ragged_gather_words(col.data, s256, width - 256)]
+    words = [lambda data=data, st=st, w=w: window.ragged_gather_words(data, st, w)
+             for _, data, st, w in _captured_word_gathers(col)]
     cuda = torch.autograd.DeviceType.CUDA
-    found = {}
+    found, fills = {}, {}
     for name, fns in (("expand_stream", calls), ("ragged_gather_words", words)):
         for fn in fns:
             fn()  # first use
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
             for fn in fns:
                 fn()
             torch.cuda.synchronize()
         found[name] = {e.key: e.count for e in prof.key_averages()
                        if e.device_type == cuda and e.self_device_time_total > 0}
-    want = {"expand_stream": {"expand_firsts": len(calls), "expand_kernel": len(calls)},
+        # a fill is a FillFunctor kernel or a memset, whichever torch takes;
+        # the shapes of the tensors the fills wrote
+        fills[name] = [[str(e.input_shapes[0] if e.input_shapes else None), e.count]
+                       for e in prof.key_averages(group_by_input_shape=True) if e.key == "aten::fill_"]
+    want = {"expand_stream": {"expand_firsts": len(calls), "expand_kernel": len(calls), "fill": len(calls)},
             "ragged_gather_words": {"window_words": len(words)}}
+    want_fills = {"expand_stream": [["[1]", len(calls)]], "ragged_gather_words": []}
+
+    def kind(key):
+        if "FillFunctor" in key or "Memset" in key:
+            return "fill"
+        return next((k for k in ("expand_firsts", "expand_kernel", "window_words") if k in key), key)
+
     bad = {}
     for name, kinds in want.items():
-        counts = {k: sum(c for key, c in found[name].items() if k in key) for k in kinds}
-        others = {key: c for key, c in found[name].items() if not any(k in key for k in kinds)}
-        if counts != kinds or others:
-            bad[name] = found[name]
+        counts = {k: sum(c for key, c in found[name].items() if kind(key) == k) for k in kinds}
+        others = {key: c for key, c in found[name].items() if kind(key) not in kinds}
+        if counts != kinds or others or fills[name] != want_fills[name]:
+            bad[name] = {"device_kernels": found[name], "fills": fills[name]}
     _emit({"phase": "launch checks", "expand_stream_calls": len(calls),
-           "ragged_gather_words_calls": len(words), "device_kernels": found})
+           "ragged_gather_words_calls": len(words), "device_kernels": found, "fills": fills})
     if bad:
-        raise AssertionError(f"calls that launched other kernels than one of theirs: {bad}")
+        raise AssertionError(f"calls that launched other kernels than theirs: {bad}")
 
 
 def _scan_shapes(torch, col, lens, signed):
@@ -1337,7 +1392,7 @@ def main() -> int:
 
     recs = _kernel_phase(torch, col, width)
     _scan_checks(torch, col)
-    _launch_checks(torch, col, width)
+    _launch_checks(torch, col)
 
     t0 = time.perf_counter()
     logs = make_logs(LOG_ROWS, seed=2)

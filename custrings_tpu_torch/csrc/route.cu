@@ -39,11 +39,10 @@
 //     live flags in one load and one dist; the tiles whose first 16
 //     lanes are dead (runs of dead lanes, which must be read whole) are
 //     read by all of the block's threads, 16 lanes a load; each block
-//     takes
-//     the suffix minimum of its 256 tiles, and the last block to finish
-//     (an atomic ticket, handed back as 0 by that block) the suffix
-//     minimum over the blocks, so S[b] = min(local[b], blocks[b / 256 +
-//     1]) with no third launch;
+//     takes the suffix minimum of its 256 tiles, and the last block to
+//     finish (an atomic ticket, the scratch's last word, which the
+//     caller zeroes) the suffix minimum over the blocks, so S[b] =
+//     min(local[b], blocks[b / 256 + 1]) with no third launch;
 //   * the expansion takes one output chunk of OC slots per block (OC as
 //     large as fits 64 KB of shared memory over every plane and
 //     `placed`), finds the tile owning its first slot by binary search
@@ -243,7 +242,6 @@ expand_firsts(const uint8_t* __restrict__ live, const int32_t* __restrict__ dist
     __syncthreads();
     carry = all;
   }
-  if (threadIdx.x == 0) *ticket = 0u;  // ready for the next call
 }
 
 struct Starts {
@@ -496,20 +494,18 @@ int cs_compact(const void* keep, const void* k0, const void* in, int64_t n,
 int64_t cs_expand_scratch_words(int64_t n) {
   const int64_t ntiles = (n + TILE - 1) / TILE;
   const int64_t nblk = (ntiles + TILES_PER_PRE - 1) / TILES_PER_PRE;
-  return ntiles + nblk + nblk + 1;
+  return ntiles + nblk + nblk + 1 + 1;  // local, block_min, blocks, ticket
 }
 
 // Move live lane j of every plane to j + dist[j] where that lies in
 // [0, out_cap), zeros elsewhere; placed (may be null) gets 1 where a
 // value landed, 0 elsewhere.  in/out: nplanes pointers, esz their element
 // bytes (1, 4 or 8); out and placed must be 16-byte aligned.  scratch:
-// cs_expand_scratch_words(n) int64 words; ticket: one uint32, 0 before
-// the call and 0 again after it (calls sharing a ticket must be ordered
-// on one stream).
+// cs_expand_scratch_words(n) int64 words, the last of them 0 (the
+// pre-pass's ticket).
 int cs_expand(const void* live, const void* dist, int64_t n, int64_t out_cap,
               int nplanes, const void* const* in, void* const* out,
-              const int* esz, void* placed, void* scratch, void* ticket,
-              void* stream) {
+              const int* esz, void* placed, void* scratch, void* stream) {
   if (out_cap <= 0) return (int)cudaGetLastError();
   if (nplanes < 1 || nplanes > MAX_PLANES) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -534,10 +530,11 @@ int cs_expand(const void* live, const void* dist, int64_t n, int64_t out_cap,
   int64_t* local = (int64_t*)scratch;
   int64_t* block_min = local + ntiles;
   int64_t* blocks = block_min + nblk;
+  unsigned* ticket = (unsigned*)(blocks + nblk + 1);
   if (ntiles > 0) {
     expand_firsts<<<(unsigned)nblk, THREADS, 0, s>>>(
         (const uint8_t*)live, (const int32_t*)dist, n, out_cap, ntiles,
-        (uintptr_t)live % 16 == 0, local, block_min, blocks, (unsigned*)ticket);
+        (uintptr_t)live % 16 == 0, local, block_min, blocks, ticket);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

@@ -33,9 +33,10 @@
 // may straddle rows.  Each word is assembled from the two aligned 4-byte
 // words that cover its window (alignment taken from the absolute address
 // data + start, since data may be a view at any offset) with one
-// __funnelshift_r and one __byte_perm for the byte swap; when Wq is a
-// multiple of 4 (the encode's key words and tails) a thread's words lie
-// in one row and take five aligned loads.  An aligned word that would
+// __funnelshift_r and one __byte_perm for the byte swap; a thread whose
+// four words lie in one row (every thread when Wq is a multiple of 4, as
+// in the encode's key words and tails) takes five aligned loads, the
+// others assemble word by word.  An aligned word that would
 // reach before data or past cap is not read: that word's bytes are taken
 // one by one (the allocation is not known to be padded).
 
@@ -107,7 +108,7 @@ window_words(const uint8_t* __restrict__ data, int64_t cap,
   const int64_t rel = s + 4 * q;
   const int mis = (int)(((uintptr_t)data + (uintptr_t)rel) & 3);
   const int64_t lo = rel - mis;
-  if (Wq % WORDS_PER_THREAD == 0 && lo >= 0 && lo + (mis ? 20 : 16) <= cap) {
+  if (q + WORDS_PER_THREAD <= Wq && lo >= 0 && lo + (mis ? 20 : 16) <= cap) {
     // the four words lie in one row, inside the buffer: five aligned
     // loads (four when the window is aligned)
     const uint32_t* p = (const uint32_t*)(data + lo);

@@ -68,7 +68,7 @@ _SIGNATURES = {
     # route.cu
     "cs_compact": ([_P, _P, _P, _I64, _I32, _P, _P], _I32),
     "cs_expand_scratch_words": ([_I64], _I64),
-    "cs_expand": ([_P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _P, _P], _I32),
+    "cs_expand": ([_P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _P], _I32),
     # spans.cu
     "cs_span_all": (
         [_P, _I64, _P, _P, _P, _P, _I32, _P, _I32, _P, _I64, _I32, _I32, _P, _P, _P, _P, _P],

@@ -9,7 +9,8 @@ routing network and VMEM ring buffer exist only because the TPU has no
 fast scatter; the expansion is output-driven (a pre-pass finds each input
 tile's first live target, then each block assembles one output chunk of
 every plane in shared memory and writes it once), so its outputs are
-allocated without a fill and every plane of a call moves in one launch.
+allocated without a fill (only the pre-pass's one-word ticket is zeroed)
+and every plane of a call moves in one launch.
 
     compact_stream(keep, arrays)           kept elements stably to the
                                            front, zeros after
@@ -105,18 +106,6 @@ def _expand_plain(live, dist, planes, out_cap, want_placed):
     return outs, placed
 
 
-#: the expansion's ticket per (device, stream): one uint32 that the
-#: pre-pass's last block hands back as 0, so it is filled once, not per call
-_TICKETS: dict = {}
-
-
-def _ticket(device, stream: int) -> torch.Tensor:
-    key = (device, stream)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _TICKETS[key]
-
-
 def _expand_launch(live, dist, planes, out_cap, want_placed):
     import ctypes
 
@@ -129,8 +118,8 @@ def _expand_launch(live, dist, planes, out_cap, want_placed):
     for t in (live, dist, *planes):
         kernels.require_cuda(t, "expand_stream")
     lib = kernels.lib()
-    stream = kernels.stream_ptr(live)
     scratch = torch.empty(lib.cs_expand_scratch_words(n), dtype=torch.int64, device=dev)
+    scratch[-1:].fill_(0)  # the pre-pass's ticket: one word, not the outputs
     k = len(planes)
     err = lib.cs_expand(
         live.data_ptr(), dist.data_ptr(), n, out_cap, k,
@@ -138,7 +127,7 @@ def _expand_launch(live, dist, planes, out_cap, want_placed):
         (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
         (ctypes.c_int * k)(*[_ELEM_BYTES[a.dtype] for a in planes]),
         placed.data_ptr() if want_placed else None, scratch.data_ptr(),
-        _ticket(dev, stream).data_ptr(), stream,
+        kernels.stream_ptr(live),
     )
     kernels.check(err, "expand_stream")
     kernels.LAUNCHES["route_expand"] += 1

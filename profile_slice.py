@@ -3,7 +3,8 @@
     python3 profile_slice.py               # after chip_smoke.py has passed
     python3 profile_slice.py --all-spans   # the all_spans part alone
     python3 profile_slice.py --matchers    # the K2 / K2b matchers alone
-    python3 profile_slice.py --k1b-k4e     # encode, grow, split and K1b / K4e alone
+    python3 profile_slice.py --ops dictionary_encode,replace_grow
+                                           # the per-op rows of those ops alone
 
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
 "THE"), dictionary_encode, the growing and shrinking replace_literal
@@ -34,13 +35,10 @@ entry points, so they time an earlier tree's package the same way, with
 that tree's package first on sys.path.  One JSON line each, after one
 naming the package's directory.
 
-`--k1b-k4e` profiles dictionary_encode, the growing replace_literal and
-split_record alone, then times with CUDA events, through the package's
-entry points only (so an earlier tree's package is timed the same way),
-ragged_gather_words (K1b) at the encode's four shapes and the expansion
-(K4e) at the calls the grow replace and the split make (as
-shift_compact.expand_to receives them) and at the padded grid, each with
-the device kernels of one call under torch.profiler.
+`--ops a,b,...` runs the per-op rows of the named ops alone (names as in
+the op table in main()); they call only the package's entry points, so
+an earlier tree's package is profiled the same way.  The kernels' own
+times at the main path's calls are chip_smoke.py's kernel phase.
 """
 
 from __future__ import annotations
@@ -98,52 +96,6 @@ def all_spans_part(torch, strs) -> None:
             }), flush=True)
 
 
-def k1b_k4e_part(torch, strs) -> None:
-    """K1b at the encode's shapes and K4e at the main path's calls, CUDA
-    event ms and the device kernels of one call."""
-    import inspect
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from custrings_tpu_torch import column
-    from custrings_tpu_torch.ops import layout, route, shift_compact, window
-
-    col = column.from_host_strings(strs, "cuda")
-    width = layout.max_row_bytes(col)
-    starts = col.offsets[:-1]
-    s64, s256 = starts + 64, starts + 256
-    calls = [
-        ("K1b", f"key words 64 i32[{col.size},16]", lambda: window.ragged_gather_words(col.data, starts, 64)),
-        ("K1b", f"key words 256 i32[{col.size},64]", lambda: window.ragged_gather_words(col.data, starts, 256)),
-        ("K1b", f"tails past 64 i32[{col.size},{(width - 64) // 4}]",
-         lambda: window.ragged_gather_words(col.data, s64, width - 64)),
-        ("K1b", f"tails past 256 i32[{col.size},{(width - 256) // 4}]",
-         lambda: window.ragged_gather_words(col.data, s256, width - 256)),
-    ]
-    grow, splits = cs._captured_expansions(torch, col)
-    takes_want = "want_placed" in inspect.signature(shift_compact.expand_to).parameters
-    for label, (live, dist, planes, cap, want) in [("grow replace", grow[0])] + [
-            (f"split call {k}", c) for k, c in enumerate(splits)]:
-        args = (live, dist, planes, cap) + ((want,) if takes_want else ())
-        names = "+".join(str(a.dtype).split(".")[-1] for a in planes)
-        calls.append(("K4e", f"{label} {names}[{live.shape[0]}] -> [{cap}]{' with placed' if want else ''}",
-                      lambda args=args: shift_compact.expand_to(*args)))
-    _, _, glive, gdist = cs._route_inputs(torch, col, width)
-    calls.append(("K4e", f"padded grid uint8[{col.capacity}] -> [{col.size * width}] with placed",
-                  lambda: route.expand_stream(glive, gdist, [col.data], col.size * width)))
-    cuda = torch.autograd.DeviceType.CUDA
-    for kernel, label, fn in calls:
-        ms = cs._time_ms(torch, fn, reps=9)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        device = [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in prof.key_averages()
-                  if e.device_type == cuda and e.self_device_time_total > 0]
-        print(json.dumps({"part": "k1b_k4e", "kernel": kernel, "call": label, "ms": ms,
-                          "device": device}), flush=True)
-
-
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -162,18 +114,9 @@ def main() -> int:
     from custrings_tpu_torch.ops import hash, layout, modify, split, unique
     from custrings_tpu_torch.regex import ops as rx
 
-    matchers = "--matchers" in sys.argv[1:]
-    k1b_k4e = "--k1b-k4e" in sys.argv[1:]
-    strs = cs.make_corpus(cs.ROWS, seed=0)
-    corpora = {"tweets": strs}
-    if not k1b_k4e:
-        logs = cs.make_logs(cs.LOG_ROWS, seed=2)
-        corpora.update(logs=logs, logs_big=logs[: cs.BIG_ROWS])
-    if not matchers and not k1b_k4e:
-        corpora["long"] = cs.make_long_logs(cs.LONG_ROWS, seed=3)
-
-    def fresh(src="tweets"):
-        return column.from_host_strings(corpora[src], "cuda")
+    args = sys.argv[1:]
+    matchers = "--matchers" in args
+    only = args[args.index("--ops") + 1].split(",") if "--ops" in args else None
 
     ops = {
         "contains_re": ("tweets", lambda c: rx.contains_re(c, cs.PATTERN)),
@@ -194,8 +137,23 @@ def main() -> int:
     }
     if matchers:
         ops = {k: v for k, v in ops.items() if k == "contains_re" or k.endswith("(K2b)")}
-    if k1b_k4e:
-        ops = {k: v for k, v in ops.items() if k in ("dictionary_encode", "replace_grow", "split_record")}
+    if only is not None:
+        unknown = set(only) - set(ops)
+        if unknown:
+            print(f"profile_slice: unknown ops {sorted(unknown)}; known: {sorted(ops)}", file=sys.stderr)
+            return 2
+        ops = {k: ops[k] for k in only}
+    strs = cs.make_corpus(cs.ROWS, seed=0)
+    corpora = {"tweets": strs}
+    srcs = {src for src, _ in ops.values()}
+    if srcs & {"logs", "logs_big"}:
+        logs = cs.make_logs(cs.LOG_ROWS, seed=2)
+        corpora.update(logs=logs, logs_big=logs[: cs.BIG_ROWS])
+    if "long" in srcs:
+        corpora["long"] = cs.make_long_logs(cs.LONG_ROWS, seed=3)
+
+    def fresh(src="tweets"):
+        return column.from_host_strings(corpora[src], "cuda")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):
         torch.ones(1, device="cuda").sum()
@@ -223,8 +181,7 @@ def main() -> int:
             "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in top],
         }), flush=True)
 
-    if k1b_k4e:
-        k1b_k4e_part(torch, strs)
+    if only is not None:
         print(cs._nvidia_smi(), flush=True)
         return 0
     col = fresh()

@@ -164,3 +164,38 @@ def test_length_buckets_and_rows_parity():
         jmat, jnch = jlayout.char_matrix_rows(j, b)
         np.testing.assert_array_equal(nch.numpy()[: a.nv], np.asarray(jnch)[: b.nv])
         np.testing.assert_array_equal(mat.numpy()[: a.nv], np.asarray(jmat)[: b.nv])
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_encode_word_gathers_match_pallas_and_their_bound(monkeypatch):
+    """The hashed encode's own ragged_gather_words calls, captured as
+    chip_smoke.py captures them (key words from the row starts, tails from
+    the sorted rows' and the representatives' starts), against the Pallas
+    kernel; and chip_smoke's K1b bound counts the union of their windows."""
+    from custrings_tpu_torch.ops import unique as tunique
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(tunique, "HASHED_MIN", 64)
+    col = tcol.from_host_strings(cs.make_corpus(400, seed=5), "cpu")
+    calls = cs._captured_word_gathers(col)
+    assert [c[0] for c in calls] == [
+        "key words 64 (row starts)", "tails past 64 (sorted rows)", "tails past 64 (group representatives)",
+        "key words 256 (row starts)", "tails past 256 (sorted rows)", "tails past 256 (group representatives)"]
+    data = col.data.numpy()
+    for label, d, st, w in calls:
+        want = np.asarray(jwin.ragged_gather_words(jnp.asarray(data), jnp.asarray(st.numpy()), w))
+        np.testing.assert_array_equal(twin.ragged_gather_words(d, st, w).numpy(), want, err_msg=label)
+        wb, cover = 4 * -(-w // 4), np.zeros(data.shape[0], bool)
+        for s in st.tolist():
+            cover[max(s, 0):max(min(s + wb, data.shape[0]), 0)] = True
+        assert cs._words_bound(torch, d, st, w) == (int(cover.sum()) + st.shape[0] * (wb + 4), 0), label
