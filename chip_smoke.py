@@ -27,7 +27,10 @@ Phases, each printing one JSON line:
      launch checks — torch.profiler: each expand_stream call runs one
                expand_firsts, one expand_kernel and one fill of one word
                (its ticket) and no other fill; each of the encode's
-               ragged_gather_words calls one window_words
+               ragged_gather_words calls one window_words; each hash_mm3
+               call one hash_rows; each compact_bytes call one
+               compact_tiles and one fill of its scratch status words,
+               no K3 and no fill of an output
      views   — the two padded-view routes at the slice's widths: the
                K1 window gather masked at the lengths (the route every
                size takes) against the streaming view (K4c/K4e, the
@@ -47,8 +50,15 @@ Phases, each printing one JSON line:
                Python `re` oracles of the matchers phase
      kernels — K2b (nfa_words) on the log rows for ERR, ISO and MONTH
                (and ERR without its \b, one closure variant, beside it),
-               K6 (hash) over the tweet corpus, K7 (compact_bytes) over its
-               capacity, each against its plain version, exactly
+               K6 (hash_mm3) over the tweet rows (the headline), the long
+               log rows, rows of 0-9 bytes, a 10,003-byte row, a last row
+               ending at a cap of 16k+7 and a data view; K7
+               (compact_bytes, the whole entry point) over the tweet
+               capacity at two masks, out_cap = capacity, below the kept
+               count and 0, all and none kept, a uint8 keep, caps of
+               4k+1..4k+3, below a tile and below 16, and data[1:] views;
+               each against its plain version, exactly; then 100
+               back-to-back K7 calls, exact
      compact — compact_bytes(data, data != " ", capacity) once, against
                torch.masked_select
   5. matchers — contains and match through the facade: ERR, ISO, MONTH on
@@ -742,15 +752,20 @@ def _expand_shapes(torch, col, width, live_grid, dist_grid):
 
 
 def _launch_checks(torch, col):
-    """torch.profiler over main-path calls of K4e and K1b: each
+    """torch.profiler over main-path calls of K4e, K1b, K6 and K7: each
     expand_stream call (with and without placed, one or three planes)
     must run one expand_firsts, one expand_kernel and one fill of a
     single word (the pre-pass's ticket) and nothing else, so no fill of
     an output; each of the encode's ragged_gather_words calls one
-    window_words kernel and nothing else."""
+    window_words kernel and nothing else; each hash_mm3 call one
+    hash_rows kernel and nothing else; each compact_bytes call one
+    compact_tiles kernel and one fill of its scratch status words
+    (1 + its input tiles, int64) and nothing else: no K3 scan and no
+    fill of an output."""
     from torch.profiler import ProfilerActivity, profile
 
-    from custrings_tpu_torch.ops import route, window
+    from custrings_tpu_torch import kernels
+    from custrings_tpu_torch.ops import compact, hash, route, window
 
     grow, splits = _captured_expansions(torch, col)
     live, dist, planes, bcap, _ = grow[0]
@@ -761,9 +776,18 @@ def _launch_checks(torch, col):
              lambda: route.expand_stream(live, dist, mixed, bcap, False)]
     words = [lambda data=data, st=st, w=w: window.ragged_gather_words(data, st, w)
              for _, data, st, w in _captured_word_gathers(col)]
+    hashes = [lambda: hash.hash_mm3(col)] * 3
+    cap = col.capacity
+    space = col.data != 32
+    compacts = [lambda: compact.compact_bytes(col.data, space, JAX_COMPACT_TB * -(-cap // JAX_COMPACT_TB)),
+                lambda: compact.compact_bytes(col.data, space, cap // 2),
+                lambda: compact.compact_bytes(col.data[1:], space[1:], cap - 1)]
+    status = {f"[{kernels.lib().cs_compact_bytes_scratch_words(c)}]" for c in (cap, cap - 1)}
     cuda = torch.autograd.DeviceType.CUDA
+    groups = (("expand_stream", calls), ("ragged_gather_words", words), ("hash_mm3", hashes),
+              ("compact_bytes", compacts))
     found, fills = {}, {}
-    for name, fns in (("expand_stream", calls), ("ragged_gather_words", words)):
+    for name, fns in groups:
         for fn in fns:
             fn()  # first use
         torch.cuda.synchronize()
@@ -774,26 +798,35 @@ def _launch_checks(torch, col):
         found[name] = {e.key: e.count for e in prof.key_averages()
                        if e.device_type == cuda and e.self_device_time_total > 0}
         # a fill is a FillFunctor kernel or a memset, whichever torch takes;
-        # the shapes of the tensors the fills wrote
+        # the shapes of the tensors the fills wrote (torch.zeros records a
+        # zero_, an explicit fill a fill_)
         fills[name] = [[str(e.input_shapes[0] if e.input_shapes else None), e.count]
-                       for e in prof.key_averages(group_by_input_shape=True) if e.key == "aten::fill_"]
+                       for e in prof.key_averages(group_by_input_shape=True)
+                       if e.key in ("aten::fill_", "aten::zero_")]
     want = {"expand_stream": {"expand_firsts": len(calls), "expand_kernel": len(calls), "fill": len(calls)},
-            "ragged_gather_words": {"window_words": len(words)}}
-    want_fills = {"expand_stream": [["[1]", len(calls)]], "ragged_gather_words": []}
+            "ragged_gather_words": {"window_words": len(words)},
+            "hash_mm3": {"hash_rows": len(hashes)},
+            "compact_bytes": {"compact_tiles": len(compacts), "fill": len(compacts)}}
+    want_fills = {"expand_stream": [["[1]", len(calls)]], "ragged_gather_words": [], "hash_mm3": []}
 
     def kind(key):
         if "FillFunctor" in key or "Memset" in key:
             return "fill"
-        return next((k for k in ("expand_firsts", "expand_kernel", "window_words") if k in key), key)
+        return next((k for k in ("expand_firsts", "expand_kernel", "window_words", "hash_rows",
+                                 "compact_tiles") if k in key), key)
 
     bad = {}
     for name, kinds in want.items():
         counts = {k: sum(c for key, c in found[name].items() if kind(key) == k) for k in kinds}
         others = {key: c for key, c in found[name].items() if kind(key) not in kinds}
-        if counts != kinds or others or fills[name] != want_fills[name]:
+        if name == "compact_bytes":
+            fills_ok = {shape for shape, _ in fills[name]} <= status
+        else:
+            fills_ok = fills[name] == want_fills[name]
+        if counts != kinds or others or not fills_ok:
             bad[name] = {"device_kernels": found[name], "fills": fills[name]}
-    _emit({"phase": "launch checks", "expand_stream_calls": len(calls),
-           "ragged_gather_words_calls": len(words), "device_kernels": found, "fills": fills})
+    _emit({"phase": "launch checks", "calls": {name: len(fns) for name, fns in groups},
+           "device_kernels": found, "fills": fills, "compact_status_shapes": sorted(status)})
     if bad:
         raise AssertionError(f"calls that launched other kernels than theirs: {bad}")
 
@@ -951,30 +984,139 @@ def _walk_words(torch, nfa, first, end):
     return npos * 4 + 5 * first.shape[0], npos * (8 + 6 * nfa.W32)
 
 
-def _compact_inputs(torch, data):
-    """K7's two masks over the capacity (byte is not a space; 5% kept,
-    seeded), each with its K3 prefix count and the JAX callers' out_cap
-    (the kept count rounded up to whole 2,048-byte tiles)."""
-    from custrings_tpu_torch.column import cumsum0
+#: the JAX package's output tile of compact_bytes: its callers round
+#: out_cap up to whole tiles
+JAX_COMPACT_TB = 2048
+
+
+def _hash_bound(col):
+    """(bytes, ops) of hash_mm3(col): each row's bytes read once, the
+    offsets read and the int64 output written; ~10 ops per 4-byte block
+    and ~20 a row (tail and fmix)."""
+    n = col.size
+    nbytes = int(col.offsets[-1] - col.offsets[0])
+    return nbytes + 4 * (n + 1) + 8 * n, 10 * (nbytes // 4) + 20 * n
+
+
+def _hash_shapes(torch, col, long_rows):
+    """K6's shapes, each with its own bound: the tweet rows (the
+    headline), the 2,048 long log rows, 2^20 rows of 0-9 bytes (every
+    len & 3), one row of 10,003 bytes among short ones (far past the
+    kernel's 128-byte step), a column whose last row ends on the
+    buffer's last byte with cap % 16 = 7, and the tweet rows on a data
+    view 3 bytes into its allocation."""
+    from custrings_tpu_torch import column
+    from custrings_tpu_torch.ops import hash
+
+    rng = np.random.default_rng(17)
+
+    def raw(lens):
+        """Random bytes in rows of these lengths, capacity = the bytes."""
+        offs = np.concatenate([[0], np.cumsum(np.asarray(lens, np.int64))]).astype(np.int32)
+        data = rng.integers(0, 256, int(offs[-1]), dtype=np.uint8)
+        return column.from_numpy(data, offs, np.ones(len(lens), bool), "cuda")
+
+    ends = rng.integers(0, 300, 4099)
+    ends[-1] += (7 - int(ends.sum())) % 16
+    buf = torch.zeros(col.capacity + 3, dtype=torch.uint8, device=col.device)
+    buf[3:] = col.data
+    cases = [("tweets", col), ("long log rows", column.from_host_strings(long_rows, "cuda")),
+             ("rows of 0-9 bytes", raw(rng.integers(0, 10, 1 << 20))),
+             ("one row of 10,003 bytes", raw([5, 0, 10_003, 3, *rng.integers(0, 300, 60)])),
+             ("last row ending at cap, cap % 16 = 7", raw(ends)),
+             ("tweets on data[3:] of a buffer",
+              column.StringColumn(buf[3:], col.offsets, col.validity))]
+    return [(f"{label} [{c.size} rows, {int(c.offsets[-1])} bytes, cap {c.capacity}]",
+             lambda c=c: hash.hash_mm3(c), lambda c=c: hash._hash_plain(c),
+             {"bound": _hash_bound(c)}) for label, c in cases]
+
+
+def _compact_bound(torch, keep, out_cap: int):
+    """(bytes, ops) of compact_bytes(data, keep, out_cap): out_cap bytes
+    written, and data and keep read up to the out_cap-th kept byte (the
+    whole input when fewer are kept, since it takes reading all of keep
+    to know there is no more)."""
+    if out_cap == 0:
+        return 0, 0
+    cap = keep.shape[0]
+    k0 = torch.cumsum(keep.to(torch.int64), 0)
+    need = cap if int(k0[-1]) < out_cap else int(torch.searchsorted(k0, out_cap)) + 1
+    return 2 * need + out_cap, 0
+
+
+def _compact_shapes(torch, data):
+    """K7's shapes, compact_bytes(data, keep, out_cap) as the JAX package
+    exposes it, each with its bound (_compact_bound): "byte is not a
+    space" (the headline) and 5% kept (seeded) with the JAX callers'
+    out_cap (the kept count rounded up to whole 2,048-byte tiles) and
+    torch.masked_select's time; then out_cap =
+    capacity (a zero tail of ~28 MB), out_cap below the kept count,
+    out_cap = 0, all and none kept, a uint8 keep, caps of 4k+1..4k+3,
+    below one tile and below 16 bytes, data[1:] with keep[1:] (one
+    offset mod 16) and with keep[:-1] (two)."""
     from custrings_tpu_torch.ops import compact
 
+    cap = data.shape[0]
     g = torch.Generator(device="cpu").manual_seed(7)
-    sparse = (torch.rand(data.shape[0], generator=g) < 0.05).cuda()
-    out = []
-    for label, keep in (("byte is not a space", data != 32), ("5% kept", sparse)):
-        keep8 = keep.view(torch.uint8)
-        k0 = cumsum0(keep8)
-        kept = int(k0[-1])
-        out.append((label, keep, keep8, k0, compact.TB * max(-(-kept // compact.TB), 1)))
-    return out
+    sparse = (torch.rand(cap, generator=g) < 0.05).cuda()
+    space = data != 32
+    kept = int(space.sum())
+
+    def tiles(k):
+        return JAX_COMPACT_TB * max(-(-k // JAX_COMPACT_TB), 1)
+
+    def case(label, d, k, oc, library=False):
+        extra = {"bound": _compact_bound(torch, k, oc)}
+        if library:
+            extra["library"] = lambda: torch.masked_select(d, k)
+        return (f"u8[{d.shape[0]}] {label} -> u8[{oc}]", lambda: compact.compact_bytes(d, k, oc),
+                lambda: compact._compact_plain(d, k.bool(), oc), extra)
+
+    m = 1_000_000
+    return [
+        case("byte is not a space", data, space, tiles(kept), True),
+        case("5% kept", data, sparse, tiles(int(sparse.sum())), True),
+        case(f"not a space, out_cap = capacity (zero tail {cap - kept})", data, space, cap),
+        case("not a space, out_cap below the kept count", data, space, kept // 2 + 5),
+        case("out_cap 0", data, space, 0),
+        case("all kept", data, torch.ones_like(space), cap),
+        case("none kept", data, torch.zeros_like(space), cap),
+        case("uint8 keep", data, space.to(torch.uint8), tiles(kept)),
+        *[case(f"cap 4k+{r}", data[:m + r], space[:m + r], m + r) for r in (1, 2, 3)],
+        case("cap below one tile", data[:5001], space[:5001], 6000),
+        case("cap 7", data[:7], space[:7], 16),
+        case("data[1:], keep[1:]", data[1:], space[1:], cap - 1),
+        case("data[1:], keep[:-1]", data[1:], space[:-1], cap - 1),
+    ]
 
 
-def _kernel_phase_rest(torch, col, logs_col, err_starts):
+def _compact_checks(torch, data):
+    """100 back-to-back compact_bytes calls (slices of changing length and
+    offset, out_cap below, at and above the slice, no sync between them),
+    each exact against its plain version, so no scratch state leaks from
+    one call to the next."""
+    from custrings_tpu_torch.ops import compact
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    sizes = torch.randint(1, 1 << 20, (100,), generator=g).tolist()
+    caps = [k * f // 4 for k, f in zip(sizes, torch.randint(0, 6, (100,), generator=g).tolist())]
+    keep = data % 3 != 0
+    outs = [compact.compact_bytes(data[i: i + k], keep[i: i + k], oc)
+            for i, (k, oc) in enumerate(zip(sizes, caps))]
+    torch.cuda.synchronize()
+    bad = [i for i, (k, oc, got) in enumerate(zip(sizes, caps, outs))
+           if not torch.equal(got, compact._compact_plain(data[i: i + k], keep[i: i + k], oc))]
+    _emit({"phase": "compact checks", "back_to_back_calls": len(sizes), "mismatched_calls": bad})
+    if bad:
+        raise AssertionError(f"K7 calls that disagree with their plain version: {bad}")
+
+
+def _kernel_phase_rest(torch, col, logs_col, err_starts, long_rows):
     """K2b on the log rows (ERR, ISO and MONTH, unanchored and anchored;
     ERR unanchored is the headline shape; then ERR without its word
-    boundaries), K6 over the tweet corpus and K7 over its capacity, each
-    against its plain version."""
-    from custrings_tpu_torch.ops import compact, hash, layout
+    boundaries), K6 at its shapes (_hash_shapes) and K7 at its
+    (_compact_shapes), each against its plain version."""
+    from custrings_tpu_torch.ops import layout
     from custrings_tpu_torch.regex import ops as rx
 
     chars, nch = layout.char_matrix(logs_col)
@@ -993,26 +1135,15 @@ def _kernel_phase_rest(torch, col, logs_col, err_starts):
     starts = torch.tensor(err_starts, dtype=torch.int32).cuda()
     row_end = torch.minimum(nch, torch.full_like(nch, L))
     k2b_end = torch.where(starts >= 0, starts + 1, row_end)
-    nbytes = int(col.offsets[-1])
-    n, cap = col.size, col.capacity
-    masks = _compact_inputs(torch, col.data)
+    hashes = _hash_shapes(torch, col, long_rows)
+    compacts = _compact_shapes(torch, col.data)
     cases = [
         ("nfa_words", "csrc/nfa_words.cu", "custrings_tpu/regex/pallas_nfa.py:332", k2b,
          _walk_words(torch, rx._get_nfa(ERR), torch.zeros_like(nch), k2b_end), None),
-        ("hash", "csrc/hash.cu", "custrings_tpu/ops/pallas_hash.py:111",
-         [(f"tweets [{n} rows, {nbytes} bytes]", lambda: hash._hash_launch(col),
-           lambda: hash._hash_plain(col))],
-         # each byte once, offsets and output; ~10 ops per 4-byte block
-         (nbytes + 4 * (n + 1) + 4 * n, 10 * (nbytes // 4) + 20 * n), None),
-        ("compact_bytes", "csrc/compact.cu", "custrings_tpu/ops/pallas_compact.py:184",
-         [(f"u8[{cap}] {label} -> u8[{oc}]",
-           lambda k8=k8, k0=k0, oc=oc: compact._compact_launch(col.data, k8, k0, oc),
-           lambda keep=keep, oc=oc: compact._compact_plain(col.data, keep, oc))
-          for label, keep, k8, k0, oc in masks],
-         # compact_bytes(data, keep, out_cap): data and keep read once,
-         # out_cap bytes written (k0 is the kernel's own intermediate)
-         (2 * cap + masks[0][4], 0),
-         lambda: torch.masked_select(col.data, masks[0][1])),
+        ("hash", "csrc/hash.cu", "custrings_tpu/ops/pallas_hash.py:111", hashes,
+         hashes[0][3]["bound"], None),
+        ("compact_bytes", "csrc/compact.cu", "custrings_tpu/ops/pallas_compact.py:184", compacts,
+         compacts[0][3]["bound"], compacts[0][3]["library"]),
     ]
     return _measure(torch, cases, one_plain=("nfa_words",))
 
@@ -1409,7 +1540,8 @@ def main() -> int:
            "capacity": logs_col.capacity, "width": layout.max_row_bytes(logs_col),
            "long_rows": LONG_ROWS, "long_bytes": sum(len(s.encode()) for s in long_rows),
            "seconds": logs_s, "oracle_seconds": oracle_s})
-    recs += _kernel_phase_rest(torch, col, logs_col, err_starts)
+    recs += _kernel_phase_rest(torch, col, logs_col, err_starts, long_rows)
+    _compact_checks(torch, col.data)
     del logs_col
     (compacted, keep), compact_launches = _driven(torch, kernels, _run_compact, col.data)
     if not torch.equal(compacted[: int(keep.sum())], torch.masked_select(col.data, keep)):

@@ -32,9 +32,10 @@
 //     combine their totals with shuffles;
 //   - the block publishes its aggregate in its 64-bit status word (flag and
 //     32-bit value in one store, so a reader never sees one without the
-//     other), then warp 0 looks back over 32 predecessors at a time,
-//     waiting only on those up to the nearest inclusive prefix, folding
-//     their aggregates, and publishes its own inclusive prefix;
+//     other), then warp 0 looks back over 32 predecessors at a time
+//     (lookback.cuh), waiting only on those up to the nearest inclusive
+//     prefix, folding their aggregates, and publishes its own inclusive
+//     prefix;
 //   - the results go out through shared memory with 16-byte stores
 //     (scalar for the unaligned head and tail: out[1:] of cumsum0 is 4
 //     bytes off), so the output is written coalesced.
@@ -52,6 +53,8 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -64,32 +67,8 @@ constexpr int QUADS = TILE / 4;
 // one padding quad every 8 quads: the quads a thread writes and the quads
 // 8 neighbouring threads read then fall on distinct bank groups
 constexpr int QSLOTS = QUADS + QUADS / 8;
-constexpr unsigned FULL = 0xffffffffu;
-
-// a tile's status word: flag in the high 32 bits, value in the low 32
-constexpr unsigned long long FLAG_AGGREGATE = 1ull << 32;
-constexpr unsigned long long FLAG_INCLUSIVE = 2ull << 32;
-
-__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long pack(unsigned long long flag, int32_t v) {
-  return flag | (unsigned long long)(uint32_t)v;
-}
-
-struct Sum {
-  static __device__ __forceinline__ int32_t identity() { return 0; }
-  static __device__ __forceinline__ int32_t op(int32_t a, int32_t b) {
-    return (int32_t)((uint32_t)a + (uint32_t)b);
-  }
-};
+using lookback::FULL;
+using lookback::Sum;
 
 struct Max {
   static __device__ __forceinline__ int32_t identity() { return INT_MIN; }
@@ -177,35 +156,6 @@ __device__ __forceinline__ void store_tile(int32_t* __restrict__ out, int64_t o0
   for (int j = head + 4 * body + tid; j < cnt; j += THREADS) p[j] = s.at(j);
 }
 
-// warp 0: the op of every tile before `tile`, by decoupled look-back
-template <typename Op>
-__device__ __forceinline__ int32_t look_back(const unsigned long long* status, int64_t tile,
-                                             int lane) {
-  int32_t excl = Op::identity();
-  int64_t pred = tile - 1 - lane;  // lane 0 looks at the nearest predecessor
-  while (true) {
-    // wait until every predecessor up to the nearest inclusive prefix in
-    // this window of 32 has published
-    unsigned long long st;
-    unsigned inclusive;
-    while (true) {
-      st = pred >= 0 ? load_status(status + pred) : pack(FLAG_INCLUSIVE, Op::identity());
-      inclusive = __ballot_sync(FULL, (st >> 32) == 2);
-      const unsigned invalid = __ballot_sync(FULL, (st >> 32) == 0);
-      const unsigned upto = inclusive ? ((inclusive & (0u - inclusive)) << 1) - 1u : FULL;
-      if ((invalid & upto) == 0) break;
-    }
-    // fold the aggregates up to and including the nearest inclusive prefix
-    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
-    int32_t c = lane <= stop ? (int32_t)(uint32_t)st : Op::identity();
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) c = Op::op(c, __shfl_xor_sync(FULL, c, d));
-    excl = Op::op(excl, c);
-    if (inclusive) return excl;
-    pred -= 32;
-  }
-}
-
 template <typename Op, typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 scan_tiles(const T* __restrict__ in, int32_t* __restrict__ out, int64_t n, int shift,
@@ -252,16 +202,7 @@ scan_tiles(const T* __restrict__ in, int32_t* __restrict__ out, int64_t n, int s
     }
     if (lane < WARPS) warp_incl[lane] = w;
     const int32_t aggregate = __shfl_sync(FULL, w, WARPS - 1);
-    int32_t excl = Op::identity();
-    if (tile == 0) {
-      if (lane == 0) store_status(status, pack(FLAG_INCLUSIVE, aggregate));
-    } else {
-      if (lane == 0) store_status(status + tile, pack(FLAG_AGGREGATE, aggregate));
-      excl = look_back<Op>(status, tile, lane);
-      if (lane == 0) {
-        store_status(status + tile, pack(FLAG_INCLUSIVE, Op::op(excl, aggregate)));
-      }
-    }
+    const int32_t excl = lookback::publish_and_look_back<Op>(status, tile, aggregate, lane);
     if (lane == 0) block_excl = excl;
   }
   __syncthreads();

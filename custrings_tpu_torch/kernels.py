@@ -77,9 +77,10 @@ _SIGNATURES = {
     # nfa_words.cu
     "cs_nfa_words": ([_P, _P, _P, _I32, _P, _I32, _P, _I64, _I64, _I32, _I32, _P, _P], _I32),
     # hash.cu
-    "cs_hash": ([_P, _P, _I64, _P, _P], _I32),
+    "cs_hash": ([_P, _I64, _P, _I64, _P, _P], _I32),
     # compact.cu
-    "cs_compact_bytes": ([_P, _P, _P, _I64, _I64, _P, _P], _I32),
+    "cs_compact_bytes_scratch_words": ([_I64], _I64),
+    "cs_compact_bytes": ([_P, _P, _I64, _I64, _P, _P, _P], _I32),
     "cs_error_string": ([_I32], ctypes.c_char_p),
 }
 

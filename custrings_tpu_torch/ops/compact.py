@@ -2,11 +2,14 @@
 
 Port of `custrings_tpu/ops/pallas_compact.py:compact_bytes` (TPU kernel
 `_compact_p` / `_compact_kernel`).  The CUDA kernel is `csrc/compact.cu`:
-one block per output tile of TB bytes, which finds its input window by a
-binary search in the prefix count and gathers the tile's kept bytes in
-shared memory.  It takes every `out_cap`, so the TPU's window-overflow
-test and its scatter fallback have no counterpart.  The plain version is
-a masked select into a zero buffer; a CPU tensor takes it.
+one pass over 8,192-byte input tiles that counts the kept bytes, takes
+each tile's output offset by decoupled look-back and writes its run of
+kept bytes, while the blocks after the last tile zero the output's tail;
+so the prefix count is never written out, and a call is one launch plus
+the fill of its scratch status words.  It takes every `out_cap`, so the
+TPU's window-overflow test and its scatter fallback have no counterpart.
+The plain version is a masked select into a zero buffer; a CPU tensor
+takes it.
 
 Nothing in the package calls it, as in the JAX package: its users are the
 tests and `chip_smoke.py`.
@@ -17,10 +20,6 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..column import cumsum0
-
-#: output tile bytes of the CUDA kernel (the TPU kernel's TB)
-TB = 2048
 
 
 def _compact_plain(data: torch.Tensor, keep: torch.Tensor, out_cap: int) -> torch.Tensor:
@@ -30,15 +29,19 @@ def _compact_plain(data: torch.Tensor, keep: torch.Tensor, out_cap: int) -> torc
     return out
 
 
-def _compact_launch(data: torch.Tensor, keep8: torch.Tensor, k0: torch.Tensor, out_cap: int) -> torch.Tensor:
+def _compact_launch(data: torch.Tensor, keep8: torch.Tensor, out_cap: int) -> torch.Tensor:
     out = torch.empty(out_cap, dtype=torch.uint8, device=data.device)
     if out_cap == 0:
         return out
-    for t in (data, keep8, k0):
+    for t in (data, keep8):
         kernels.require_cuda(t, "compact_bytes")
-    err = kernels.lib().cs_compact_bytes(
-        data.data_ptr(), keep8.data_ptr(), k0.data_ptr(), data.shape[0], out_cap,
-        out.data_ptr(), kernels.stream_ptr(data),
+    lib = kernels.lib()
+    # the tile counter and status words start at 0 on every call
+    scratch = torch.zeros(lib.cs_compact_bytes_scratch_words(data.shape[0]), dtype=torch.int64,
+                          device=data.device)
+    err = lib.cs_compact_bytes(
+        data.data_ptr(), keep8.data_ptr(), data.shape[0], out_cap, out.data_ptr(),
+        scratch.data_ptr(), kernels.stream_ptr(data),
     )
     kernels.check(err, "compact_bytes")
     kernels.LAUNCHES["compact_bytes"] += 1
@@ -57,4 +60,4 @@ def compact_bytes(data: torch.Tensor, keep: torch.Tensor, out_cap: int) -> torch
     keep8 = keep.contiguous().view(torch.uint8)
     if not data.is_cuda:
         return _compact_plain(data, keep8.bool(), out_cap)
-    return _compact_launch(data.contiguous(), keep8, cumsum0(keep8), out_cap)
+    return _compact_launch(data.contiguous(), keep8, out_cap)

@@ -4,9 +4,11 @@ Port of `custrings_tpu/ops/pallas_hash.py` (`hash_mm3_pallas` with the TPU
 kernel `hash_rows_pallas` / `_hash_kernel`) and of its plain form
 `custrings_tpu/ops/convert.py:hash_mm3` (reference semantics:
 custring.inl:164-231).  The CUDA kernel is `csrc/hash.cu`: one thread per
-row reading the row's bytes where they lie.  The plain version below is
-`hash_mm3`'s: little-endian 32-bit blocks over the zero-padded view, the
-tail combine, then the fmix; it is what a column on the CPU takes.
+row, staging its row through shared memory 128 bytes at a time with
+16-byte loads, and writing the int64 result itself, so a call is one
+launch.  The plain version below is `hash_mm3`'s:
+little-endian 32-bit blocks over the zero-padded view, the tail combine,
+then the fmix; it is what a column on the CPU takes.
 
 Values are uint32, returned as int64 in [0, 2^32).  The plain version
 keeps every intermediate below 2^49 in int64 (the 32-bit products are
@@ -77,13 +79,14 @@ def _hash_launch(col: StringColumn) -> torch.Tensor:
     offsets = col.offsets.to(torch.int32).contiguous()
     for t in (col.data, offsets):
         kernels.require_cuda(t, "hash")
-    out = torch.empty(n, dtype=torch.int32, device=col.device)
+    out = torch.empty(n, dtype=torch.int64, device=col.device)
     err = kernels.lib().cs_hash(
-        col.data.data_ptr(), offsets.data_ptr(), n, out.data_ptr(), kernels.stream_ptr(col.data),
+        col.data.data_ptr(), col.data.shape[0], offsets.data_ptr(), n, out.data_ptr(),
+        kernels.stream_ptr(col.data),
     )
     kernels.check(err, "hash")
     kernels.LAUNCHES["hash"] += 1
-    return out.to(torch.int64) & MASK
+    return out
 
 
 def hash_mm3(col: StringColumn) -> torch.Tensor:

@@ -9,8 +9,9 @@
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
 "THE"), dictionary_encode, the growing and shrinking replace_literal
 ("THEE", "T"), split_record(" ")), each span op (count_re("the|that"),
-findall_record(#\\w+), replace_re((\\w+)@(\\w+))) and hash on a fresh
-1M-row column of chip_smoke.make_corpus(), and for each matcher of the
+findall_record(#\\w+), replace_re((\\w+)@(\\w+))), hash and
+compact_bytes(data, data != " ", capacity) on a fresh 1M-row column of
+chip_smoke.make_corpus(), and for each matcher of the
 matchers phase (contains_re of ERR, ISO and MONTH on the 2^20 log rows of
 chip_smoke.make_logs(), of BIG on their first 65,536, of ERR on the 2,048
 long rows): the wall time without the profiler, and under torch.profiler
@@ -111,7 +112,7 @@ def main() -> int:
         print(cs._nvidia_smi(), flush=True)
         return 0
     from custrings_tpu_torch import column
-    from custrings_tpu_torch.ops import hash, layout, modify, split, unique
+    from custrings_tpu_torch.ops import compact, hash, layout, modify, split, unique
     from custrings_tpu_torch.regex import ops as rx
 
     args = sys.argv[1:]
@@ -129,6 +130,7 @@ def main() -> int:
         "findall_record": ("tweets", lambda c: rx.findall_record(c, cs.SPAN_FIND)),
         "replace_re": ("tweets", lambda c: rx.replace_re(c, cs.SPAN_REPLACE, "EMAIL")),
         "hash": ("tweets", lambda c: hash.hash_mm3(c)),
+        "compact_bytes": ("tweets", lambda c: compact.compact_bytes(c.data, c.data != 32, c.capacity)),
         "contains_re ERR (K2b)": ("logs", lambda c: rx.contains_re(c, cs.ERR)),
         "contains_re ISO (K2b)": ("logs", lambda c: rx.contains_re(c, cs.ISO)),
         "contains_re MONTH (K2b)": ("logs", lambda c: rx.contains_re(c, cs.MONTH)),
