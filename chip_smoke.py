@@ -20,7 +20,9 @@ Phases, each printing one JSON line:
                replace's and the split's own calls, the padded grid, a
                mixed u8 + i32 + i64 call, garbage dist on dead lanes,
                targets at out_cap - 1, out_cap and past, an all-dead
-               live and out_cap below n
+               live and out_cap below n; K4c (route_compact) also at the
+               whitespace split's own compact call (captured), with
+               torch.masked_select's time
      scan    — 100 back-to-back K3 calls exact against their plain
                versions (no scratch state leaks between calls), and
                torch.profiler showing one scan kernel per cumsum0 call
@@ -70,14 +72,30 @@ Phases, each printing one JSON line:
                held to one engine call that launched its kernel once
   6. hash    — nvstrings.hash on the tweet rows against a numpy
                MurmurHash3_32 (seed 31), itself held to the reference vector
-  7. launches — each path's kernel counters (reset just before the path,
+  7. text    — the same rows with a seeded ~10% rewritten with mixed
+               whitespace (\t \n \x0b \x1f \x00 runs, leading and trailing,
+               \xa0 and \u3000 inside tokens) and ~0.5% whitespace only,
+               through the facades: split_record(None), split_record(None,
+               2), rsplit_record(None, 2), rsplit_record(" ", 1),
+               partition(" "), rpartition("#"), and nvtext's tokenize,
+               token_count, unique_tokens, tokens_counts / contains_strings
+               / strings_counts against 20 corpus words, normalize_spaces,
+               replace_tokens (3 targets), ngrams(2) of the first 2^17
+               rows' tokens, edit_distance to "the conference" and
+               pairwise against replace("the", "THE"), and the Porter
+               measure of the vocabulary; every row against Python
+               oracles (whitespace is code points <= 0x20, not
+               str.isspace), 4,096 seeded rows (vocabulary words) for the
+               distances (a numpy DP) and the Porter measure
+  8. launches — each path's kernel counters (reset just before the path,
                read just after) are above zero for the kernels it runs;
                K3 sum's launches are also split by input size
 Then the kernels JSON line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line.  Any failure exits nonzero.
 
-make_corpus() builds the tweet-like corpus and make_logs() the log lines
-from a seed with numpy; the CPU tests import them at a small size.
+make_corpus() builds the tweet-like corpus, make_logs() the log lines and
+make_text_rows() the text phase's rows from a seed with numpy; the CPU
+tests import them at a small size.
 """
 
 from __future__ import annotations
@@ -559,6 +577,7 @@ def _kernel_phase(torch, col, width):
         ("route_compact", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:290",
          [(f"u8[{cap}] width-64 view", lambda: route.compact_stream(keep, [col.data], k0)[0][0],
            lambda: route._compact_plain(keep, k0, col.data)),
+          _split_compact_shape(torch, col),
           (f"i64[{n}] group representatives", lambda: route.compact_stream(first, [perm], k0_first)[0][0],
            lambda: route._compact_plain(first, k0_first, perm))],
          (cap * (1 + 4 + 1 + 1), 0), lambda: torch.masked_select(col.data, keep)),
@@ -690,6 +709,49 @@ def _captured_expansions(torch, col):
     finally:
         shift_compact.expand_to = expand_to
     return grow, splits
+
+
+class _CompactLog:
+    """Records each call of shift_compact.compact_arrays while active, by
+    wrapping it (the ops of ops/split.py call it through the module):
+    `calls` holds (keep, planes) of each."""
+
+    def __enter__(self):
+        from custrings_tpu_torch.ops import shift_compact
+
+        self.calls, self._saved = [], shift_compact.compact_arrays
+
+        def recorded(keep, arrays):
+            self.calls.append((keep, list(arrays)))
+            return self._saved(keep, arrays)
+
+        shift_compact.compact_arrays = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from custrings_tpu_torch.ops import shift_compact
+
+        shift_compact.compact_arrays = self._saved
+
+
+def _split_compact_shape(torch, col):
+    """K4c at the whitespace split's own compact call on `col`, with its
+    bound (keep and its prefix count read over the capacity, the kept bytes
+    read, the output written) and torch.masked_select's time."""
+    from custrings_tpu_torch.column import cumsum0
+    from custrings_tpu_torch.ops import route, split
+
+    with _CompactLog() as log:
+        split.split_record(col, None)
+    if len(log.calls) != 1:
+        raise AssertionError(f"expected one compaction in the whitespace split, got {len(log.calls)}")
+    keep, (data,) = log.calls[0]
+    k0 = cumsum0(keep)
+    cap, kept = keep.shape[0], int(k0[-1])
+    return (f"u8[{cap}] whitespace split writer ({kept} bytes kept)",
+            lambda: route.compact_stream(keep, [data], k0)[0][0],
+            lambda: route._compact_plain(keep, k0, data),
+            {"bound": (cap * (1 + 4 + 1) + kept, 0), "library": lambda: torch.masked_select(data, keep)})
 
 
 def _expand_bound(live, planes, out_cap: int, want_placed: bool):
@@ -1473,6 +1535,231 @@ def _run_compact(torch, data):
     return compact.compact_bytes(data, keep, data.shape[0]), keep
 
 
+#: the text phase's nvtext targets: words of the corpus's token groups
+TEXT_TARGETS = ("the", "theme", "there", "a", "to", "of", "love", "day", "lol", "rt", "people",
+                "night", "#data", "#ai", "@user", "@nvidia", "http://t.co/abc123", "café", "日本語",
+                "😀🔥")
+#: replace_tokens' targets and replacements
+TEXT_REPLACE = (("the", "THE"), ("#ai", "#AI"), ("café", "cafe"))
+DISTANCE_TARGET = "the conference"
+#: the rows whose tokens the n-grams take, and the rows (and vocabulary
+#: words) the distance and Porter oracles sample
+NGRAM_ROWS = 1 << 17
+TEXT_SAMPLE = 4096
+#: whitespace runs of the rewritten rows, and the two code points above
+#: 0x20 that look like spaces and stay inside a token
+_WS_RUNS = (" ", "  ", "\t", "\n", "\x0b", "\x1f", " \t ", "\r\n", "\x0c", "\x00")
+_IN_TOKEN = ("\xa0", "　")
+
+
+def make_text_rows(strs, seed: int = 4):
+    """strs with a seeded ~10% of the rows rewritten for the whitespace
+    split: each space becomes a run of mixed whitespace (\\t \\n \\x0b \\x1f
+    \\x00 ...), about one join in twenty becomes \\xa0 or \\u3000 (which stay
+    inside a token), and half of them gain leading or trailing whitespace;
+    ~0.5% of the rows become whitespace only."""
+    rng = np.random.default_rng(seed)
+    out = list(strs)
+    kind = rng.random(len(out))
+    for i in np.nonzero(kind < 0.10)[0].tolist():
+        if out[i] is None:
+            continue
+        words = out[i].split(" ")
+        codes = rng.integers(0, 40, len(words) + 2).tolist()
+        seps = [_IN_TOKEN[c] if c < 2 else _WS_RUNS[c % len(_WS_RUNS)] for c in codes[1:-1]]
+        row = words[0] + "".join(sep + w for sep, w in zip(seps, words[1:]))
+        lead = _WS_RUNS[codes[0] % len(_WS_RUNS)] if codes[0] < 10 else ""
+        trail = _WS_RUNS[codes[-1] % len(_WS_RUNS)] if codes[-1] < 10 else ""
+        out[i] = lead + row + trail
+    for i in np.nonzero((kind >= 0.10) & (kind < 0.105))[0].tolist():
+        out[i] = "".join(_WS_RUNS[c] for c in rng.integers(0, len(_WS_RUNS), 3).tolist())
+    return out
+
+
+#: str.split's whitespace made the split's: code points <= 0x20 become a
+#: space, and the other str.isspace chars (all below 0x3001) private-use
+#: chars, each mapped back after the split
+_WS_TABLE = {c: 0x20 for c in range(0x21)}
+_WS_TABLE.update((c, 0xE000 + c) for c in range(0x21, 0x3001) if chr(c).isspace())
+_WS_BACK = {v: k for k, v in _WS_TABLE.items() if v != 0x20}
+#: the code points <= 0x20 that str.split does not split on
+_NOT_PY_WS = re.compile("[\x00-\x08\x0e-\x1b]")
+
+
+def ws_split(s, n, right=False):
+    """The whitespace split's oracle: words are runs of code points above
+    0x20 (not str.isspace: \\xa0 and \\u3000 stay inside, \\x00-\\x1f split);
+    a row without a word gives [""]; with n > 0 at most n splits, the last
+    token (from the right, the first) keeping the rest of the row.  It is
+    str.split / str.rsplit on the row with that whitespace."""
+    if s is None:
+        return None
+    plain = s.isascii() and not _NOT_PY_WS.search(s)
+    t = s if plain else s.translate(_WS_TABLE)
+    parts = (t.rsplit if right else t.split)(None, n if n > 0 else -1)
+    if not parts:
+        return [""]
+    if 0 < n < len(parts):  # the limit reached: the rest of the row, verbatim
+        if right:
+            parts[0] = s[: len(parts[0])]
+        else:
+            parts[-1] = s[len(s) - len(parts[-1]):]
+    return parts if s.isascii() else [p.translate(_WS_BACK) for p in parts]
+
+
+def levenshtein_batch(pairs):
+    """Levenshtein distances of (a, b) string pairs: the textbook DP, one
+    cell (i, j) at a time over the whole batch with numpy."""
+    la = np.array([len(a) for a, _ in pairs])
+    lb = np.array([len(b) for _, b in pairs])
+    A = np.full((len(pairs), max(int(la.max(initial=0)), 1)), -1, np.int64)
+    B = np.full((len(pairs), max(int(lb.max(initial=0)), 1)), -2, np.int64)
+    for r, (a, b) in enumerate(pairs):
+        A[r, : len(a)] = [ord(c) for c in a]
+        B[r, : len(b)] = [ord(c) for c in b]
+    prev = np.tile(np.arange(B.shape[1] + 1), (len(pairs), 1))
+    rows = np.arange(len(pairs))
+    res = lb.copy()  # an empty a
+    for i in range(1, int(la.max(initial=0)) + 1):
+        cur = np.empty_like(prev)
+        cur[:, 0] = i
+        for j in range(1, B.shape[1] + 1):
+            cur[:, j] = np.minimum(np.minimum(prev[:, j], cur[:, j - 1]) + 1,
+                                   prev[:, j - 1] + (A[:, i - 1] != B[:, j - 1]))
+        done = la == i
+        res[done] = cur[rows[done], lb[done]]
+        prev = cur
+    return res.tolist()
+
+
+def porter_measure(word: str, vowels: str = "aeiou", y: str = "y") -> int:
+    """The Porter measure m of a word: its vowel-consonant sequences, y a
+    consonant at the start and after a vowel, a vowel after a consonant."""
+    cons = []
+    for k, ch in enumerate(word):
+        cons.append(not (k and cons[-1]) if ch == y and ch not in vowels else ch not in vowels)
+    return sum(cons[k] and not cons[k - 1] for k in range(1, len(cons)))
+
+
+def _records_host(recs):
+    return [None if r is None else r.to_host() for r in recs]
+
+
+def _run_text(torch, strs):
+    """The text path through the facades: the whitespace and right-to-left
+    splits, partition and rpartition, and every nvtext op; returns (host
+    results, per-op seconds, per-op peak device memory).  Each record op's
+    per-row nvstrings are read back at once (`<op> to_host`)."""
+    from custrings_tpu_torch import nvstrings, nvtext
+
+    times, peaks, out = {}, {}, {}
+    step = _stepper(torch, times, peaks)
+    s = step("to_device", lambda: nvstrings.to_device(strs, device="cuda"))
+    tg = nvstrings.to_device(list(TEXT_TARGETS), device="cuda")
+    rt = nvstrings.to_device([a for a, _ in TEXT_REPLACE], device="cuda")
+    rr = nvstrings.to_device([b for _, b in TEXT_REPLACE], device="cuda")
+    records = [("split_record(None)", lambda: s.split_record(None)),
+               ("split_record(None, 2)", lambda: s.split_record(None, 2)),
+               ("rsplit_record(None, 2)", lambda: s.rsplit_record(None, 2)),
+               ('rsplit_record(" ", 1)', lambda: s.rsplit_record(" ", 1)),
+               ('partition(" ")', lambda: s.partition(" ")),
+               ('rpartition("#")', lambda: s.rpartition("#"))]
+    for name, fn in records:
+        recs = step(name, fn)
+        out[name] = step(f"{name} to_host", _records_host, recs)
+        del recs
+    toks = step("tokenize", lambda: nvtext.tokenize(s))
+    out["tokenize"] = step("tokenize to_host", toks.to_host)
+    del toks
+    out["token_count"] = step("token_count", lambda: nvtext.token_count(s))
+    vocab = step("unique_tokens", lambda: nvtext.unique_tokens(s))
+    out["unique_tokens"] = step("unique_tokens to_host", vocab.to_host)
+    for name in ("tokens_counts", "contains_strings", "strings_counts"):
+        out[name] = step(name, getattr(nvtext, name), s, tg)
+    out["normalize_spaces"] = step("normalize_spaces", lambda: nvtext.normalize_spaces(s)).to_host()
+    out["replace_tokens"] = step("replace_tokens", lambda: nvtext.replace_tokens(s, rt, rr)).to_host()
+    head = nvstrings.to_device(strs[:NGRAM_ROWS], device="cuda")
+    grams = step("ngrams", lambda: nvtext.ngrams(nvtext.tokenize(head), 2))
+    out["ngrams"] = grams.to_host()
+    del head, grams
+    out["edit_distance"] = step("edit_distance", lambda: nvtext.edit_distance(s, DISTANCE_TARGET))
+    upper = step("replace THE", lambda: s.replace("the", "THE", regex=False))
+    out["edit_distance pairwise"] = step("edit_distance pairwise", lambda: nvtext.edit_distance(s, upper))
+    out["porter_stemmer_measure"] = step("porter_stemmer_measure",
+                                         lambda: nvtext.porter_stemmer_measure(vocab))
+    return out, times, peaks
+
+
+def _check_text(strs, res):
+    """Mismatches of each text op against its Python oracle: every row, and
+    TEXT_SAMPLE seeded rows (vocabulary words for the Porter measure) for
+    the distances and the Porter measure."""
+    words = [ws_split(s, -1) for s in strs]
+    space_toks = [None if s is None else [t for t in s.split(" ") if t] for s in strs]
+    bad = {
+        "split_record(None)": _mismatches(res["split_record(None)"], words),
+        "split_record(None, 2)": _mismatches(res["split_record(None, 2)"], [ws_split(s, 2) for s in strs]),
+        "rsplit_record(None, 2)": _mismatches(res["rsplit_record(None, 2)"],
+                                              [ws_split(s, 2, True) for s in strs]),
+        'rsplit_record(" ", 1)': _mismatches(res['rsplit_record(" ", 1)'],
+                                             [None if s is None else s.rsplit(" ", 1) for s in strs]),
+        'partition(" ")': _mismatches(res['partition(" ")'],
+                                      [[None] * 3 if s is None else list(s.partition(" ")) for s in strs]),
+        'rpartition("#")': _mismatches(res['rpartition("#")'],
+                                       [[None] * 3 if s is None else list(s.rpartition("#")) for s in strs]),
+        "tokenize": _mismatches(res["tokenize"], [t for w in words if w for t in w if t]),
+        "token_count": _mismatches(res["token_count"], [0 if t is None else len(t) for t in space_toks]),
+        "normalize_spaces": _mismatches(res["normalize_spaces"],
+                                        [None if w is None else " ".join(w) for w in words]),
+    }
+    vocab = sorted({t for ts in space_toks if ts for t in ts})
+    bad["unique_tokens"] = _mismatches(res["unique_tokens"], vocab)
+    n, k = len(strs), len(TEXT_TARGETS)
+    # tokens equal to each target: the tokens' target ids, counted by row
+    tid = {t: i for i, t in enumerate(TEXT_TARGETS)}
+    lens = np.fromiter((0 if ts is None else len(ts) for ts in space_toks), np.int64, n)
+    ids = np.fromiter((tid.get(t, k) for ts in space_toks if ts for t in ts), np.int64, int(lens.sum()))
+    tc = np.bincount(np.repeat(np.arange(n), lens) * (k + 1) + ids, minlength=n * (k + 1))
+    bad["tokens_counts"] = _mismatches(res["tokens_counts"], tc.reshape(n, k + 1)[:, :k].tolist())
+    # occurrences of each target, overlapping ones included: str.count
+    # finds them all unless the target overlaps itself (has a border);
+    # then they are found in the rows joined by a char no target holds
+    big = "\uffff".join("" if s is None else s for s in strs)
+    starts = np.cumsum([0] + [1 + (0 if s is None else len(s)) for s in strs[:-1]])
+
+    def occurrences(t):
+        if not any(t[:j] == t[-j:] for j in range(1, len(t))):
+            return [0 if s is None else s.count(t) for s in strs]
+        at, i = [], big.find(t)
+        while i >= 0:
+            at.append(i)
+            i = big.find(t, i + 1)
+        return np.bincount(np.searchsorted(starts, at, side="right") - 1, minlength=n).tolist()
+
+    sc = np.array([occurrences(t) for t in TEXT_TARGETS], np.int64).T
+    bad["strings_counts"] = _mismatches(res["strings_counts"], sc.tolist())
+    bad["contains_strings"] = _mismatches(res["contains_strings"], (sc > 0).tolist())
+    # a target bounded by whitespace or the row's ends is a whole token
+    rep = dict(TEXT_REPLACE)
+    whole = re.compile(r"(?<![^\x00-\x20])(?:" + "|".join(map(re.escape, rep)) + r")(?![^\x00-\x20])")
+    bad["replace_tokens"] = _mismatches(res["replace_tokens"], [
+        None if s is None else whole.sub(lambda m: rep[m.group(0)], s) for s in strs])
+    head = [t for w in words[:NGRAM_ROWS] if w for t in w if t]
+    bad["ngrams"] = _mismatches(res["ngrams"], [a + "_" + b for a, b in zip(head, head[1:])])
+    rng = np.random.default_rng(9)
+    rows = sorted(rng.choice(len(strs), TEXT_SAMPLE, replace=False).tolist())
+    live = [r for r in rows if strs[r] is not None]
+    want = dict(zip(live, levenshtein_batch([(strs[r], DISTANCE_TARGET) for r in live])))
+    bad["edit_distance"] = _mismatches([res["edit_distance"][r] for r in rows], [want.get(r, 0) for r in rows])
+    want = dict(zip(live, levenshtein_batch([(strs[r], strs[r].replace("the", "THE")) for r in live])))
+    bad["edit_distance pairwise"] = _mismatches([res["edit_distance pairwise"][r] for r in rows],
+                                                [want.get(r, 0) for r in rows])
+    picks = sorted(rng.choice(len(vocab), min(TEXT_SAMPLE, len(vocab)), replace=False).tolist())
+    bad["porter_stemmer_measure"] = _mismatches([res["porter_stemmer_measure"][p] for p in picks],
+                                                [porter_measure(vocab[p]) for p in picks])
+    return bad, sum(len(w) for w in words if w and w[0]), len(vocab)
+
+
 def _driven(torch, kernels, run, strs):
     """Run one path with every launch counter set to 0 just before it and
     read just after; returns (run's result, the counters)."""
@@ -1490,6 +1777,7 @@ SPAN_KERNELS = ("span_all",)
 MATCHER_KERNELS = ("nfa_words",)
 HASH_KERNELS = ("hash",)
 COMPACT_KERNELS = ("compact_bytes",)
+TEXT_KERNELS = ("scan_sum", "route_compact", "window_bytes", "window_words")
 
 
 def main() -> int:
@@ -1502,6 +1790,7 @@ def main() -> int:
     from custrings_tpu_torch import column, kernels
     from custrings_tpu_torch.ops import layout
 
+    t_main = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
     _emit({"phase": "device", "torch_device": kind, "nvidia_smi": smi,
@@ -1621,13 +1910,31 @@ def main() -> int:
     if any(hbad.values()):
         raise AssertionError(f"hash disagrees with the numpy MurmurHash3: {hbad}")
 
+    del hashes
+    text_strs = make_text_rows(strs)
+    t_text = time.perf_counter()
+    _run_text(torch, text_strs[:4096])  # first use
+    (tres, ttimes, tpeaks), text_launches = _driven(torch, kernels, _run_text, text_strs)
+    t_check = time.perf_counter()
+    tbad, ntokens, nvocab = _check_text(text_strs, tres)
+    _emit({"phase": "text", "rows": ROWS, "rewritten_rows": sum(a != b for a, b in zip(strs, text_strs)),
+           "ms": {k: v * 1e3 for k, v in ttimes.items()}, "max_memory_allocated": max(tpeaks.values()),
+           "max_memory_allocated_by_op": tpeaks, "tokens": ntokens, "vocabulary": nvocab,
+           "ngram_rows": NGRAM_ROWS, "sampled_rows": TEXT_SAMPLE,
+           "oracle_seconds": time.perf_counter() - t_check,
+           "phase_seconds": time.perf_counter() - t_text,
+           "script_seconds_before_phase": t_text - t_main, "mismatches": tbad})
+    if any(tbad.values()):
+        raise AssertionError(f"text ops disagree with their Python oracles: {tbad}")
+    del tres
+
     paths = {"slice": slice_launches, "spans": span_launches, "matchers": matcher_launches,
-             "hash": hash_launches, "compact": compact_launches}
+             "hash": hash_launches, "compact": compact_launches, "text": text_launches}
     _emit({"phase": "launches", **paths})
     missing = []
     for path_name, need in (("slice", SLICE_KERNELS), ("spans", SPAN_KERNELS),
                             ("matchers", MATCHER_KERNELS), ("hash", HASH_KERNELS),
-                            ("compact", COMPACT_KERNELS)):
+                            ("compact", COMPACT_KERNELS), ("text", TEXT_KERNELS)):
         missing += [f"{path_name}: {k}" for k in need if paths[path_name][k] <= 0]
     if missing:
         raise AssertionError(f"kernels their path never launched: {missing}")

@@ -1,7 +1,7 @@
 """Row gather and the packed-key sort order.
 
 Port of `custrings_tpu/ops/array.py`: `_gather_impl` / `gather`,
-`_mask_word_tails`, `_key_words` and `_order_impl`.  Sort keys are
+`gather_mask`, `_mask_word_tails`, `_key_words` and `_order_impl`.  Sort keys are
 big-endian 32-bit words of each row's bytes, gathered by K1b
 (`ragged_gather_words`) at every size, or packed from the streaming
 padded view where the layout's `STREAM_VIEW_MIN` routes to it (the JAX
@@ -16,9 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..column import StringColumn, cumsum0, empty_column, materialize_bytes
+from ..column import StringColumn, empty_column
 from ..config import bucket_bytes
 from . import layout
+from .substr import _span_column
 from .window import ragged_gather_words
 
 _U32 = 0xFFFFFFFF
@@ -27,23 +28,16 @@ _U32 = 0xFFFFFFFF
 def _gather_impl(col: StringColumn, idx: torch.Tensor, capacity: int) -> StringColumn:
     """Rows col[idx] into a buffer of `capacity` bytes."""
     idx = idx.to(torch.int64)
-    starts = col.offsets[:-1][idx]
-    sizes = col.lengths()[idx]
-    validity = col.validity[idx]
-    out_offsets = cumsum0(sizes)
-    cap_in = col.capacity
-
-    def produce(rows, k, valid, bcast):
-        src = (bcast(starts) + k).clamp(0, cap_in - 1).to(torch.int64)
-        return col.data[src]
-
-    data = materialize_bytes(out_offsets, capacity, produce)
-    return StringColumn(data, out_offsets, validity)
+    return _span_column(col.data, col.offsets[:-1][idx], col.lengths()[idx], col.validity[idx], capacity)
 
 
 def gather(col: StringColumn, indexes) -> StringColumn:
-    """New column of rows col[indexes[i]]; negative indexes wrap."""
-    idx = torch.as_tensor(np.asarray(indexes), dtype=torch.int64).to(col.device)
+    """New column of rows col[indexes[i]] (a tensor or anything numpy
+    takes); negative indexes wrap."""
+    if isinstance(indexes, torch.Tensor):
+        idx = indexes.to(col.device, torch.int64)
+    else:
+        idx = torch.as_tensor(np.asarray(indexes), dtype=torch.int64).to(col.device)
     if idx.shape[0] == 0 or col.size == 0:
         return empty_column(int(idx.shape[0]), col.device, all_null=col.size == 0)
     idx = torch.where(idx < 0, idx + col.size, idx)
@@ -51,6 +45,11 @@ def gather(col: StringColumn, indexes) -> StringColumn:
         raise IndexError(f"gather: index out of range for column of {col.size} rows")
     total = int(col.lengths()[idx].sum())
     return _gather_impl(col, idx, bucket_bytes(total))
+
+
+def gather_mask(col: StringColumn, mask: torch.Tensor) -> StringColumn:
+    """The rows where mask is True, in order (array.cu gather:117)."""
+    return gather(col, torch.nonzero(mask).flatten())
 
 
 def _mask_word_tails(be: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:

@@ -443,6 +443,16 @@ def char_map(col: StringColumn) -> CharMap:
     return c["char_map"]
 
 
+def char_byte_pos(col: StringColumn, g: torch.Tensor) -> torch.Tensor:
+    """int32[rows]: byte position of the column's g-th char (g per row; at
+    or past the column's last char it is the end of the bytes), clamped
+    into the row."""
+    cm = char_map(col)
+    pos = cm.char_pos[g.clamp(max=col.capacity - 1).to(torch.int64)]
+    pos = torch.where(g >= cm.cs0[-1], col.offsets[-1], pos)
+    return torch.minimum(torch.maximum(pos, col.offsets[:-1]), col.offsets[1:])
+
+
 def _codepoints_at_bytes(data: torch.Tensor) -> torch.Tensor:
     """int32[capacity]: the codepoint whose UTF-8 sequence starts at byte
     j (garbage at continuation bytes), by shifts along the buffer."""

@@ -16,12 +16,17 @@ and every plane of a call moves in one launch.
                                            front, zeros after
     expand_stream(live, dist, arrays, m)   live element j to j + dist[j]
                                            in an output of m slots
+    cover_spans(bb, ee, ok, cap)           the byte mask of disjoint spans,
+                                           which a compaction then moves
 
 Planes may be uint8/bool, int32 or int64.  A CPU tensor takes the plain
 version below; a CUDA tensor always launches the kernel, at every size
 (the JAX package's ROUTE_MIN routing is not ported).  The TPU tile and
 DMA-alignment parameters (`tile`, `align`) are TPU workarounds and are
-not ported either.
+not ported either, nor is `scatter_sorted`, the TPU's stand-in for a
+scatter: `cover_spans` places its span bounds with an indexed add.
+`stream_expand_spans` comes with the regex ops that call it (ROADMAP
+queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from .. import kernels
 from ..column import cumsum0
+from .scan import cumsum_i32
 
 _ELEM_BYTES = {torch.uint8: 1, torch.bool: 1, torch.int32: 4, torch.int64: 8}
 
@@ -156,3 +162,13 @@ def expand_stream(live: torch.Tensor, dist: torch.Tensor, arrays, out_cap: int |
     if not live.is_cuda:
         return _expand_plain(live8.bool(), dist, planes, m, want_placed)
     return _expand_launch(live8, dist, planes, m, want_placed)
+
+
+def cover_spans(bb: torch.Tensor, ee: torch.Tensor, ok: torch.Tensor, cap: int) -> torch.Tensor:
+    """bool[cap]: the bytes inside the spans [bb, ee) where ok (spans
+    disjoint), from +1/-1 marks at the span bounds and one prefix sum (K3)."""
+    live = ok & (ee > bb)
+    marks = torch.zeros(cap + 1, dtype=torch.int32, device=bb.device)
+    marks.index_add_(0, torch.where(live, bb, cap).to(torch.int64), live.to(torch.int32))
+    marks.index_add_(0, torch.where(live, ee, cap).to(torch.int64), -live.to(torch.int32))
+    return cumsum_i32(marks[:cap]) > 0

@@ -28,17 +28,17 @@ def _char_window(col: StringColumn, starts, stops):
     e = torch.where(e <= 0, nch, e)
     e = torch.minimum(torch.maximum(e, torch.zeros_like(e)), nch)
     e = torch.maximum(e, s)
-    total_chars = cm.cs0[-1]
     co = cm.char_offsets[:-1]
-    lo, hi = col.offsets[:-1], col.offsets[1:]
+    return layout.char_byte_pos(col, co + s), layout.char_byte_pos(col, co + e)
 
-    def byte_of(charpos):
-        g = co + charpos
-        pos = cm.char_pos[g.clamp(max=col.capacity - 1).to(torch.int64)]
-        pos = torch.where(g >= total_chars, col.offsets[-1], pos)
-        return torch.minimum(torch.maximum(pos, lo), hi)
 
-    return byte_of(s), byte_of(e)
+def _span_column(src: torch.Tensor, starts, sizes, validity, capacity: int | None = None) -> StringColumn:
+    """A column whose row i is src[starts[i] : starts[i] + sizes[i]]
+    (without a capacity, the total is synced to size it)."""
+    def produce(rows, k, valid, bcast):
+        return layout.gather_bytes(src, bcast(starts) + k)
+
+    return build_column(sizes, validity, produce, capacity)
 
 
 def _slice_bytes(col: StringColumn, starts, stops) -> StringColumn:
@@ -50,11 +50,7 @@ def _slice_bytes(col: StringColumn, starts, stops) -> StringColumn:
     sb, eb = _char_window(col, starts, stops)
     sizes = eb - sb
     bound = col.capacity if col.capacity <= BOUND_SYNC_THRESHOLD else int(sizes.sum())
-
-    def produce(rows, k, valid, bcast):
-        return layout.gather_bytes(col.data, bcast(sb) + k)
-
-    return build_column(sizes, col.validity, produce, bucket_bytes(bound))
+    return _span_column(col.data, sb, sizes, col.validity, bucket_bytes(bound))
 
 
 def slice_from(col: StringColumn, starts=None, stops=None) -> StringColumn:

@@ -1,7 +1,7 @@
 """Dictionary encode: sorted unique keys and each row's key rank.
 
 Port of `custrings_tpu/ops/unique.py`: `dictionary_encode` with its two
-routes and the width escalation loop.
+routes and the width escalation loop, and `unique_strings`.
 
   sorted route (`_encode_sorted`, below HASHED_MIN rows): order every row
   by its packed key words, mark neighbours that differ, rank by a scan.
@@ -239,3 +239,8 @@ def dictionary_encode(col: StringColumn):
     else:
         keys = array.gather(col, key_idx.cpu().numpy())
     return keys, values
+
+
+def unique_strings(col: StringColumn) -> StringColumn:
+    """The column's sorted unique rows (null first, where there is one)."""
+    return dictionary_encode(col)[0]

@@ -5,13 +5,18 @@
     python3 profile_slice.py --matchers    # the K2 / K2b matchers alone
     python3 profile_slice.py --ops dictionary_encode,replace_grow
                                            # the per-op rows of those ops alone
+    python3 profile_slice.py --ops text    # the per-op rows of the text ops
 
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
 "THE"), dictionary_encode, the growing and shrinking replace_literal
 ("THEE", "T"), split_record(" ")), each span op (count_re("the|that"),
 findall_record(#\\w+), replace_re((\\w+)@(\\w+))), hash and
 compact_bytes(data, data != " ", capacity) on a fresh 1M-row column of
-chip_smoke.make_corpus(), and for each matcher of the
+chip_smoke.make_corpus(), each text op of chip_smoke.py's text phase at
+the op level (the whitespace and right-to-left splits, partition,
+rpartition, and nvtext's ops) on chip_smoke.make_text_rows() of those
+rows (the n-grams on the tokens of their first 2^17, the Porter measure
+on their vocabulary), and for each matcher of the
 matchers phase (contains_re of ERR, ISO and MONTH on the 2^20 log rows of
 chip_smoke.make_logs(), of BIG on their first 65,536, of ERR on the 2,048
 long rows): the wall time without the profiler, and under torch.profiler
@@ -37,8 +42,9 @@ that tree's package first on sys.path.  One JSON line each, after one
 naming the package's directory.
 
 `--ops a,b,...` runs the per-op rows of the named ops alone (names as in
-the op table in main()); they call only the package's entry points, so
-an earlier tree's package is profiled the same way.  The kernels' own
+the op table in main(); `text` names every text op); they call only the
+package's entry points, so an earlier tree's package is profiled the
+same way.  The kernels' own
 times at the main path's calls are chip_smoke.py's kernel phase.
 """
 
@@ -114,6 +120,7 @@ def main() -> int:
     from custrings_tpu_torch import column
     from custrings_tpu_torch.ops import compact, hash, layout, modify, split, unique
     from custrings_tpu_torch.regex import ops as rx
+    from custrings_tpu_torch.text import distance, ngram, token
 
     args = sys.argv[1:]
     matchers = "--matchers" in args
@@ -137,9 +144,39 @@ def main() -> int:
         "contains_re BIG (vector)": ("logs_big", lambda c: rx.contains_re(c, cs.BIG)),
         "contains_re ERR (chunked)": ("long", lambda c: rx.contains_re(c, cs.ERR)),
     }
+    cols = {}  # the text ops' second columns, made at their first (warm-up) call
+
+    def made(key):
+        if key not in cols:
+            cols[key] = column.from_host_strings(list(corpora[key]), "cuda")
+        return cols[key]
+
+    text_ops = {
+        "split_ws": ("text", lambda c: split.split_record(c, None)),
+        "split_ws_2": ("text", lambda c: split.split_record(c, None, 2)),
+        "rsplit_ws_2": ("text", lambda c: split.rsplit_record(c, None, 2)),
+        "rsplit_space_1": ("text", lambda c: split.rsplit_record(c, " ", 1)),
+        "partition": ("text", lambda c: split.partition(c, " ")),
+        "rpartition": ("text", lambda c: split.rpartition(c, "#")),
+        "tokenize": ("text", lambda c: token.tokenize(c)),
+        "token_count": ("text", lambda c: token.token_count(c)),
+        "unique_tokens": ("text", lambda c: token.unique_tokens(c)),
+        "tokens_counts": ("text", lambda c: token.tokens_counts(c, made("targets"))),
+        "contains_strings": ("text", lambda c: token.contains_strings(c, made("targets"))),
+        "strings_counts": ("text", lambda c: token.strings_counts(c, made("targets"))),
+        "normalize_spaces": ("text", lambda c: token.normalize_spaces(c)),
+        "replace_tokens": ("text", lambda c: token.replace_tokens(c, made("replace targets"),
+                                                                   made("replacements"))),
+        "ngrams": ("text head tokens", lambda c: ngram.create_ngrams(c, 2)),
+        "edit_distance": ("text", lambda c: distance.edit_distance_scalar(c, cs.DISTANCE_TARGET)),
+        "edit_distance_pairwise": ("text", lambda c: distance.edit_distance_pairwise(c, made("text THE"))),
+        "porter_stemmer_measure": ("vocabulary", lambda c: distance.porter_stemmer_measure(c)),
+    }
+    ops.update(text_ops)
     if matchers:
         ops = {k: v for k, v in ops.items() if k == "contains_re" or k.endswith("(K2b)")}
     if only is not None:
+        only = [k for name in only for k in (text_ops if name == "text" else [name])]
         unknown = set(only) - set(ops)
         if unknown:
             print(f"profile_slice: unknown ops {sorted(unknown)}; known: {sorted(ops)}", file=sys.stderr)
@@ -153,6 +190,16 @@ def main() -> int:
         corpora.update(logs=logs, logs_big=logs[: cs.BIG_ROWS])
     if "long" in srcs:
         corpora["long"] = cs.make_long_logs(cs.LONG_ROWS, seed=3)
+    if srcs & {"text", "text head tokens", "vocabulary"}:
+        text = cs.make_text_rows(strs)
+        corpora.update({
+            "text": text, "targets": cs.TEXT_TARGETS,
+            "replace targets": [a for a, _ in cs.TEXT_REPLACE], "replacements": [b for _, b in cs.TEXT_REPLACE],
+            "text head tokens": [t for x in text[: cs.NGRAM_ROWS] if x is not None
+                                 for t in cs.ws_split(x, -1) if t],
+            "vocabulary": sorted({t for x in text if x is not None for t in x.split(" ") if t}),
+            "text THE": [None if x is None else x.replace("the", "THE") for x in text],
+        })
 
     def fresh(src="tweets"):
         return column.from_host_strings(corpora[src], "cuda")

@@ -98,13 +98,13 @@ def test_split_extents_bodies_parity(body, delim, n):
 
 
 def test_split_without_a_delimiter_raises():
-    with pytest.raises(NotImplementedError, match="whitespace"):
-        tsp.split_record(T)
-    for fn in (tsp.rsplit_record, tsp.rsplit_columns):
-        with pytest.raises(NotImplementedError, match="rsplit"):
-            fn(T, " ")
-    with pytest.raises(ValueError):
-        tsp.split_record(T, "")
+    """An empty delimiter is refused by every split, as in custrings_tpu
+    (no delimiter at all, None, is the whitespace split:
+    test_torch_split_ws.py)."""
+    for name in ("split_record", "rsplit_record", "split_columns", "rsplit_columns"):
+        for mod, col in ((tsp, T), (jsp, J)):
+            with pytest.raises(ValueError, match="empty delimiter"):
+                getattr(mod, name)(col, "")
 
 
 @pytest.mark.parametrize("out_cap", [None, 700, 1500])
