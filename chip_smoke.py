@@ -20,9 +20,7 @@ Phases, each printing one JSON line:
                replace's and the split's own calls, the padded grid, a
                mixed u8 + i32 + i64 call, garbage dist on dead lanes,
                targets at out_cap - 1, out_cap and past, an all-dead
-               live and out_cap below n; K4c (route_compact) also at the
-               whitespace split's own compact call (captured), with
-               torch.masked_select's time
+               live and out_cap below n
      scan    — 100 back-to-back K3 calls exact against their plain
                versions (no scratch state leaks between calls), and
                torch.profiler showing one scan kernel per cumsum0 call
@@ -87,6 +85,12 @@ Phases, each printing one JSON line:
                oracles (whitespace is code points <= 0x20, not
                str.isspace), 4,096 seeded rows (vocabulary words) for the
                distances (a numpy DP) and the Porter measure
+     kernel_text — K1, K1b and K4c at the text path's own calls on these
+               rows (captured): the edit distances' char matrix windows,
+               unique_tokens' encode and the token key words of
+               tokens_counts and replace_tokens, the whitespace split's
+               compaction (with torch.masked_select's time); each against
+               its plain version, exactly, with its own bound
   8. launches — each path's kernel counters (reset just before the path,
                read just after) are above zero for the kernels it runs;
                K3 sum's launches are also split by input size
@@ -577,7 +581,6 @@ def _kernel_phase(torch, col, width):
         ("route_compact", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:290",
          [(f"u8[{cap}] width-64 view", lambda: route.compact_stream(keep, [col.data], k0)[0][0],
            lambda: route._compact_plain(keep, k0, col.data)),
-          _split_compact_shape(torch, col),
           (f"i64[{n}] group representatives", lambda: route.compact_stream(first, [perm], k0_first)[0][0],
            lambda: route._compact_plain(first, k0_first, perm))],
          (cap * (1 + 4 + 1 + 1), 0), lambda: torch.masked_select(col.data, keep)),
@@ -617,35 +620,49 @@ def _words_bound(torch, data, starts, width: int):
     return read + rows * (wb + 4), 0
 
 
+class _Calls:
+    """Records the arguments of each call of the given (module, name)
+    functions while active, by wrapping each name where its callers look
+    it up: `calls` holds (module.name, args) in call order."""
+
+    def __init__(self, *sites):
+        self.sites = sites
+
+    def __enter__(self):
+        self.calls, self._saved = [], [getattr(m, a) for m, a in self.sites]
+        for (m, a), fn in zip(self.sites, self._saved):
+            def recorded(*args, _fn=fn, _site=f"{m.__name__.rsplit('.', 1)[-1]}.{a}"):
+                self.calls.append((_site, args))
+                return _fn(*args)
+
+            setattr(m, a, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a), fn in zip(self.sites, self._saved):
+            setattr(m, a, fn)
+
+
 def _captured_word_gathers(col):
     """K1b's inputs as the main path passes them: the ragged_gather_words
-    calls of unique.dictionary_encode(col), recorded by wrapping the name
-    in ops/array.py (the key words, from the row starts) and in
-    ops/unique.py (the tails past the key prefix, from the sorted
-    rows' starts and from the group representatives'); [(label, data,
-    starts, width)] in call order."""
-    from custrings_tpu_torch.ops import array, unique, window
+    calls of unique.dictionary_encode(col), recorded where ops/array.py
+    (the key words, from the row starts) and ops/unique.py (the tails past
+    the key prefix, from the sorted rows' starts and from the group
+    representatives') look the name up; [(label, data, starts, width)]
+    in call order."""
+    from custrings_tpu_torch.ops import array, unique
 
-    seen = []
-    gather = window.ragged_gather_words
-    prefix = [0]
-
-    def key_words(data, starts, width):
-        prefix[0] = width
-        seen.append((f"key words {width} (row starts)", data, starts, width))
-        return gather(data, starts, width)
-
-    def tails(data, starts, width):
-        k = sum(label.startswith(f"tails past {prefix[0]} ") for label, *_ in seen)
-        who = ("sorted rows", "group representatives")[min(k, 1)]
-        seen.append((f"tails past {prefix[0]} ({who})", data, starts, width))
-        return gather(data, starts, width)
-
-    array.ragged_gather_words, unique.ragged_gather_words = key_words, tails
-    try:
+    with _Calls((array, "ragged_gather_words"), (unique, "ragged_gather_words")) as log:
         unique.dictionary_encode(col)
-    finally:
-        array.ragged_gather_words = unique.ragged_gather_words = gather
+    seen, prefix, tails = [], 0, 0
+    for site, (data, starts, width) in log.calls:
+        if site == "array.ragged_gather_words":
+            prefix, tails = width, 0
+            seen.append((f"key words {width} (row starts)", data, starts, width))
+        else:
+            who = ("sorted rows", "group representatives")[min(tails, 1)]
+            tails += 1
+            seen.append((f"tails past {prefix} ({who})", data, starts, width))
     return seen
 
 
@@ -687,71 +704,111 @@ def _word_shapes(torch, col):
 def _captured_expansions(torch, col):
     """K4e's inputs as the main path passes them: the calls of
     shift_compact.expand_to made by modify.replace_literal(col, "the",
-    "THEE") (the grow replace) and split.split_record(col, " "),
-    recorded by wrapping it; ([grow calls], [split calls]), each call
-    (live, dist, planes, out_cap, want_placed)."""
+    "THEE") (the grow replace) and split.split_record(col, " ");
+    ([grow calls], [split calls]), each call (live, dist, planes,
+    out_cap, want_placed)."""
     from custrings_tpu_torch.ops import modify, shift_compact, split
 
-    seen = []
-    expand_to = shift_compact.expand_to
+    def calls(run):
+        with _Calls((shift_compact, "expand_to")) as log:
+            run()
+        return [(live, dist, list(arrays), out_cap, rest[0] if rest else True)
+                for _, (live, dist, arrays, out_cap, *rest) in log.calls]
 
-    def recorded(live, dist, arrays, out_cap, *rest):
-        seen.append((live, dist, list(arrays), out_cap, rest[0] if rest else True))
-        return expand_to(live, dist, arrays, out_cap, *rest)
-
-    shift_compact.expand_to = recorded
-    try:
-        modify.replace_literal(col, "the", "THEE")
-        grow = list(seen)
-        seen.clear()
-        split.split_record(col, " ")
-        splits = list(seen)
-    finally:
-        shift_compact.expand_to = expand_to
-    return grow, splits
+    return (calls(lambda: modify.replace_literal(col, "the", "THEE")),
+            calls(lambda: split.split_record(col, " ")))
 
 
-class _CompactLog:
-    """Records each call of shift_compact.compact_arrays while active, by
-    wrapping it (the ops of ops/split.py call it through the module):
-    `calls` holds (keep, planes) of each."""
-
-    def __enter__(self):
-        from custrings_tpu_torch.ops import shift_compact
-
-        self.calls, self._saved = [], shift_compact.compact_arrays
-
-        def recorded(keep, arrays):
-            self.calls.append((keep, list(arrays)))
-            return self._saved(keep, arrays)
-
-        shift_compact.compact_arrays = recorded
-        return self
-
-    def __exit__(self, *exc):
-        from custrings_tpu_torch.ops import shift_compact
-
-        shift_compact.compact_arrays = self._saved
+def _chunked(torch, fn, rows: int, row_bytes: int):
+    """fn(i, j) over row chunks [i, j) of about 2^27 window bytes,
+    concatenated: a plain gather's int64 index plane over all of a
+    29M-token call would not fit on the card."""
+    step = max(1, (1 << 27) // max(row_bytes, 1))
+    return torch.cat([fn(i, i + step) for i in range(0, max(rows, 1), step)])
 
 
-def _split_compact_shape(torch, col):
-    """K4c at the whitespace split's own compact call on `col`, with its
-    bound (keep and its prefix count read over the capacity, the kept bytes
-    read, the output written) and torch.masked_select's time."""
+def _window_bound(lens, width: int, out_bytes: int):
+    """(bytes, ops) of a K1 window masked at the lengths: each row's first
+    min(length, width) bytes, its start and its length read, the output
+    written."""
+    rows = lens.shape[0]
+    return int(lens.clamp(0, width).sum()) + 8 * rows + out_bytes * rows * width, 0
+
+
+def _text_kernel_shapes(torch, strs, device="cuda"):
+    """K1, K1b and K4c at the text path's own calls on the text rows,
+    captured by wrapping the names their callers look up, each with its
+    own bound: the char matrix windows of the edit distance to
+    DISTANCE_TARGET and of the pairwise distance's other column (K1); the
+    key words and tails of unique_tokens' encode and the token key words
+    of tokens_counts and replace_tokens (K1b); the whitespace split's
+    compaction, with torch.masked_select's time (K4c).  Returns
+    [(name, source, replaces, shapes)].  The CPU tests run it with
+    device="cpu", where each wrapper is its plain version."""
+    from custrings_tpu_torch import nvstrings, nvtext
     from custrings_tpu_torch.column import cumsum0
-    from custrings_tpu_torch.ops import route, split
+    from custrings_tpu_torch.ops import array, layout, route, shift_compact, split, unique, window
+    from custrings_tpu_torch.text import distance, token
 
-    with _CompactLog() as log:
-        split.split_record(col, None)
-    if len(log.calls) != 1:
-        raise AssertionError(f"expected one compaction in the whitespace split, got {len(log.calls)}")
-    keep, (data,) = log.calls[0]
+    s = nvstrings.to_device(strs, device=device)
+
+    def captured(sites, ops):
+        """[(op call k: module.name, *args)] of each op's calls."""
+        out = []
+        for op, run in ops:
+            with _Calls(*sites) as log:
+                run()
+            out += [(f"{op} call {k}: {site}", *args) for k, (site, args) in enumerate(log.calls)]
+        return out
+
+    k1 = captured(((layout, "ragged_gather_i32"), (layout, "ragged_gather")), (
+        ("edit_distance to the target", lambda: nvtext.edit_distance(s, DISTANCE_TARGET)),
+        ("pairwise edit_distance's other column",
+         lambda: distance._char_matrix(s.replace("the", "THE", regex=False)._col))))
+    tg = nvstrings.to_device(list(TEXT_TARGETS), device=device)
+    rt = nvstrings.to_device([a for a, _ in TEXT_REPLACE], device=device)
+    rr = nvstrings.to_device([b for _, b in TEXT_REPLACE], device=device)
+    k1b = captured(((array, "ragged_gather_words"), (unique, "ragged_gather_words"),
+                    (token, "ragged_gather_words")), (
+        ("unique_tokens", lambda: nvtext.unique_tokens(s)),
+        ("tokens_counts", lambda: nvtext.tokens_counts(s, tg)),
+        ("replace_tokens", lambda: nvtext.replace_tokens(s, rt, rr))))
+    with _Calls((shift_compact, "compact_arrays")) as k4c:
+        split.split_record(s._col, None)
+    if not k1 or not k1b or len(k4c.calls) != 1:
+        raise AssertionError(f"text path calls not captured: K1 {len(k1)}, K1b {len(k1b)}, "
+                             f"K4c {len(k4c.calls)} (want one)")
+
+    def chars(label, data, st, w, lens):
+        i32 = label.endswith("_i32")
+        kern = window.ragged_gather_i32 if i32 else window.ragged_gather
+        rows = st.shape[0]
+
+        def plain():
+            out = _chunked(torch, lambda i, j: window._gather_plain(data, st[i:j], w, lens[i:j]), rows, w)
+            return out.to(torch.int32) if i32 else out
+
+        return (f"{'i32' if i32 else 'u8'}[{rows},{w}] {label}, masked at the lengths",
+                lambda: kern(data, st, w, lens), plain, {"bound": _window_bound(lens, w, 4 if i32 else 1)})
+
+    def words(label, data, st, w):
+        rows, wq = st.shape[0], -(-w // 4)
+        return (f"i32[{rows},{wq}] {label}, width {w}", lambda: window.ragged_gather_words(data, st, w),
+                lambda: _chunked(torch, lambda i, j: window._words_plain(data, st[i:j], w), rows, 4 * wq),
+                {"bound": _words_bound(torch, data, st, w)})
+
+    keep, (data,) = k4c.calls[0][1]
     k0 = cumsum0(keep)
     cap, kept = keep.shape[0], int(k0[-1])
-    return (f"u8[{cap}] whitespace split writer ({kept} bytes kept)",
-            lambda: route.compact_stream(keep, [data], k0)[0][0],
-            lambda: route._compact_plain(keep, k0, data),
-            {"bound": (cap * (1 + 4 + 1) + kept, 0), "library": lambda: torch.masked_select(data, keep)})
+    compact = (f"u8[{cap}] whitespace split writer ({kept} bytes kept)",
+               lambda: route.compact_stream(keep, [data], k0)[0][0],
+               lambda: route._compact_plain(keep, k0, data),
+               {"bound": (cap * (1 + 4 + 1) + kept, 0), "library": lambda: torch.masked_select(data, keep)})
+    return [("window_bytes", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170",
+             [chars(*c) for c in k1]),
+            ("window_words", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170",
+             [words(*c) for c in k1b]),
+            ("route_compact", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:290", [compact])]
 
 
 def _expand_bound(live, planes, out_cap: int, want_placed: bool):
@@ -997,12 +1054,13 @@ def _scan_checks(torch, col):
         raise AssertionError(f"{calls} cumsum0 calls ran {scan_kernels} scan kernels: {device_kernels}")
 
 
-def _measure(torch, cases, slow=(), one_plain=()):
+def _measure(torch, cases, slow=(), one_plain=(), phase="kernel"):
     """Each case's kernel against its plain version at each shape, exactly,
     with median times; the plain walks of `slow` take 3 timed calls, those
     of `one_plain` one (which is also the comparison's).  A shape may carry
     a fourth item, {"bound": (bytes, ops), "library": fn}, for its own
-    bound and library time."""
+    bound and library time.  Each case's record is printed as a `phase`
+    line."""
     out = []
     for name, source, replaces, shapes, (nbytes, nops), library in cases:
         rec = {"name": name, "route": "cuda", "source": f"custrings_tpu_torch/{source}",
@@ -1031,7 +1089,7 @@ def _measure(torch, cases, slow=(), one_plain=()):
         rec["bound_bytes"] = int(nbytes)
         rec["bound_ops"] = int(nops)
         rec["library_ms"] = _time_ms(torch, library) if library is not None else None
-        _emit({"phase": "kernel", **rec})
+        _emit({"phase": phase, **rec})
         out.append(rec)
     return out
 
@@ -1927,6 +1985,16 @@ def main() -> int:
     if any(tbad.values()):
         raise AssertionError(f"text ops disagree with their Python oracles: {tbad}")
     del tres
+    torch.cuda.empty_cache()
+    # K1, K1b and K4c at the text path's own calls, each shape added to
+    # its kernel's record (whose headline stays the first main-path shape)
+    by_name = {r["name"]: r for r in recs}
+    text_cases = [(name, src, rep, shapes, shapes[0][3]["bound"], None)
+                  for name, src, rep, shapes in _text_kernel_shapes(torch, text_strs)]
+    for t in _measure(torch, text_cases, slow=("window_words", "window_bytes"), phase="kernel_text"):
+        by_name[t["name"]]["shapes"] += t["shapes"]
+        by_name[t["name"]]["max_abs_err"] = max(by_name[t["name"]]["max_abs_err"], t["max_abs_err"])
+    torch.cuda.empty_cache()
 
     paths = {"slice": slice_launches, "spans": span_launches, "matchers": matcher_launches,
              "hash": hash_launches, "compact": compact_launches, "text": text_launches}

@@ -11,6 +11,8 @@ facade's.  The rest of the ~95 methods follow the ROADMAP's queue 1.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import column as _col
@@ -120,11 +122,9 @@ class _Row(nvstrings):
     def __init__(self, strs):
         self._strs = strs
 
-    @property
+    @functools.cached_property
     def _col(self):
-        if "_row_col" not in self.__dict__:
-            self.__dict__["_row_col"] = _col.from_host_strings(self._strs, "cpu")
-        return self.__dict__["_row_col"]
+        return _col.from_host_strings(self._strs, "cpu")
 
     def __len__(self):
         return len(self._strs)

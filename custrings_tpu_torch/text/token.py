@@ -143,32 +143,42 @@ def _target_words(data, starts, lens, targets: StringColumn):
     return tw, array._key_words(targets, w), targets.lengths()
 
 
-def _equal_ids(data, starts, lens, targets: StringColumn) -> torch.Tensor:
-    """int32[T]: for each token extent, the index of the first target
-    equal to it, or -1."""
+def _first_equal(tw, lens, gw, glens) -> torch.Tensor:
+    """int32[rows]: for each row of key words `tw` (lengths `lens`), the
+    index of the first target (key words `gw`, lengths `glens`) equal to
+    it, or -1."""
     ids = torch.full_like(lens, -1)
-    if targets.size == 0:
-        return ids
-    tw, gw, glens = _target_words(data, starts, lens, targets)
-    for g in range(targets.size - 1, -1, -1):
+    for g in range(gw.shape[0] - 1, -1, -1):
         eq = (tw == gw[g]).all(dim=1) & (lens == glens[g])
         ids = torch.where(eq, g, ids)
     return ids
+
+
+def _equal_ids(data, starts, lens, targets: StringColumn) -> torch.Tensor:
+    """int32[T]: for each token extent, the index of the first target
+    equal to it, or -1."""
+    if targets.size == 0:
+        return torch.full_like(lens, -1)
+    tw, gw, glens = _target_words(data, starts, lens, targets)
+    return _first_equal(tw, lens, gw, glens)
 
 
 def tokens_counts(col: StringColumn, targets: StringColumn, delimiter: str | None = " ") -> torch.Tensor:
     """int32[rows, n_targets]: tokens equal to each target, per row
     (tokens.cu tokens_counts:440)."""
     tok_off, starts, ends = _token_spans(col, delimiter)
-    out = torch.zeros((col.size, targets.size), dtype=torch.int32, device=col.device)
-    if starts.shape[0] == 0:
-        return out
+    n, k, T = col.size, targets.size, starts.shape[0]
+    if T == 0 or k == 0:
+        return torch.zeros((n, k), dtype=torch.int32, device=col.device)
     lens = ends - starts
     tw, gw, glens = _target_words(col.data, starts, lens, targets)
-    for g in range(targets.size):
-        eq = (tw == gw[g]).all(dim=1) & (lens == glens[g])
-        out[:, g] = segments.per_row_of_prefix(cumsum0(eq), tok_off)
-    return out
+    ids = _first_equal(tw, lens, gw, glens)
+    trow = row_ids_from_offsets(tok_off, T).to(torch.int64)
+    counts = torch.bincount(trow * (k + 1) + torch.where(ids >= 0, ids, k), minlength=n * (k + 1))
+    # a token counts for every target equal to it: a repeated target
+    # takes the column of its first occurrence
+    first = _first_equal(gw, glens, gw, glens).to(torch.int64)
+    return counts.view(n, k + 1)[:, first].to(torch.int32)
 
 
 def normalize_spaces(col: StringColumn) -> StringColumn:

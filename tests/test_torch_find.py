@@ -12,7 +12,7 @@ from custrings_tpu.ops import find as jfind
 from custrings_tpu_torch import nvstrings as tnv
 from custrings_tpu_torch.ops import find as tfind
 
-from test_torch_split_ws import STRS, pair
+from test_torch_split_ws import STRS, fast_reference_compiles, pair  # noqa: F401
 
 # one intra-op thread a process: the suite runs in several worker processes
 # at once, and a torch thread pool in each oversubscribes the cores

@@ -12,6 +12,7 @@ hold \\xa0, \\u3000 and \\x85 inside words, and \\x00-\\x08, \\x0e-\\x1b and
 import importlib.util
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -29,6 +30,18 @@ from custrings_tpu_torch.ops import split as tsp
 # one intra-op thread a process: the suite runs in several worker processes
 # at once, and a torch thread pool in each oversubscribes the cores
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def fast_reference_compiles():
+    """The reference's XLA programs compiled without most optimizations
+    while this module runs: on a few hundred rows compiling dominates, and
+    every split variant (delimiter, limit, direction, route) is a program of
+    its own."""
+    old = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", old)
 
 WORDS = ["the", "a", "of", "quick", "aa", "aaaa", "aaa", "é", "naïve", "日本語", "😀", "x😀y",
          "a\xa0b", "　", "w\x85", "z,z", "::", "the,the", "#tag", "b#c#d", "aa,a", "ab::"]

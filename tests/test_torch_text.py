@@ -23,7 +23,7 @@ from custrings_tpu_torch.text import distance as tdist
 from custrings_tpu_torch.text import ngram as tngram
 from custrings_tpu_torch.text import token as ttok
 
-from test_torch_split_ws import CS, STRS, pair, same_column
+from test_torch_split_ws import CS, STRS, fast_reference_compiles, pair, same_column  # noqa: F401
 
 # one intra-op thread a process: the suite runs in several worker processes
 # at once, and a torch thread pool in each oversubscribes the cores
@@ -101,10 +101,12 @@ def test_replace_tokens(strs, tg, rp, delimiter):
 @pytest.mark.parametrize("delimiter", [" ", None])
 def test_tokens_counts(delimiter):
     strs = ["a b a", "b b", None] + ROWS
-    (t, j), (tt, jt) = pair(strs), pair(["a", "b", "the", "aa", "é", "naïve", "x😀y", "", "the,the"])
+    # a repeated target counts each token equal to it in both its columns
+    (t, j), (tt, jt) = pair(strs), pair(["a", "b", "the", "aa", "é", "naïve", "x😀y", "", "the,the", "b"])
     got = ttok.tokens_counts(t, tt, delimiter)
     same(got, jtok.tokens_counts(j, jt, delimiter))
     assert got[:3, :2].tolist() == [[2, 1], [0, 2], [0, 0]]
+    assert torch.equal(got[:, 9], got[:, 1])
 
 
 def test_contains_and_strings_counts():
@@ -240,3 +242,21 @@ def test_chip_smoke_text_oracles():
     assert [CS.porter_measure(w) for w in toks] == tdist.porter_stemmer_measure(pair(toks)[0]).tolist()
     got = ttok.tokenize_record(t, None)
     assert tcol.to_host_strings(got.tokens) == [w for r in rows if r is not None for w in tnv_split(r)]
+
+
+def test_chip_smoke_text_kernel_captures():
+    """chip_smoke.py's captures of K1, K1b and K4c at the text path's own
+    calls find them on its rewritten rows (here on the CPU, where each
+    wrapper is its plain version), and each case's plain side, chunked by
+    rows, equals the wrapper's output."""
+    rows = CS.make_text_rows(CS.make_corpus(300, seed=5), seed=6)
+    cases = {name: shapes for name, _, _, shapes in CS._text_kernel_shapes(torch, rows, device="cpu")}
+    assert sorted(cases) == ["route_compact", "window_bytes", "window_words"]
+    labels = [label for shapes in cases.values() for label, *_ in shapes]
+    for op in ("edit_distance to the target", "unique_tokens", "tokens_counts", "replace_tokens",
+               "whitespace split writer"):
+        assert any(op in label for label in labels), (op, labels)
+    for shapes in cases.values():
+        for label, kern, plain, extra in shapes:
+            assert torch.equal(kern(), plain()), label
+            assert extra["bound"][0] > 0, label
