@@ -91,7 +91,26 @@ Phases, each printing one JSON line:
                tokens_counts and replace_tokens, the whitespace split's
                compaction (with torch.masked_select's time); each against
                its plain version, exactly, with its own bound
-  8. launches — each path's kernel counters (reset just before the path,
+  8. clean   — make_corpus's rows and 4,096 seeded edge rows (ß, ŉ, ΐ,
+               Σ/ς, 4-byte UTF-8, NUL, whitespace runs, signs, İ/ẞ, empty,
+               null) through the facade's cleanup chain: strip(), then
+               lower/upper/title/capitalize/swapcase of it, translate
+               (with a deletion and a widening), slice(2, 40, 3), get(0),
+               zfill(12), pad(40, "both", "*"), wrap(40), startswith,
+               endswith, find_from with per-row starts, compare("m"),
+               match_strings, find_multiple, len, the nine is*, cat with
+               itself (sep "|", na_rep "-"), fillna, insert,
+               slice_replace, order and sort (stype 1, 2, 3, ascending
+               nulls first and descending nulls last), scatter,
+               scalar_scatter, remove_strings, add_strings; every row
+               against a Python oracle written to the JAX package's
+               semantics (its BMP 1:1 case table, islower/isupper true
+               without letters, strip's " \n\t", title's word start)
+     kernel_clean — K4e, K1b and K1 at the clean path's own calls
+               (captured): lower()'s charwise byte expansion, order()'s
+               key words, compare()'s view; each against its plain
+               version, exactly, with its own bound
+  9. launches — each path's kernel counters (reset just before the path,
                read just after) are above zero for the kernels it runs;
                K3 sum's launches are also split by input size
 Then the kernels JSON line, the nvidia-smi line, and the final
@@ -1335,19 +1354,22 @@ def _category_oracle(strs):
     return keys, [rank[s] for s in strs]
 
 
-def _stepper(torch, times, peaks=None):
+def _stepper(torch, times, peaks=None, cuda=True):
     """step(name, fn, *args): fn(*args), its host-clock seconds in times[name]
-    and, with `peaks`, its peak device memory in peaks[name]."""
+    and, with `peaks`, its peak device memory in peaks[name]; without
+    `cuda` (the CPU tests) the seconds alone."""
     def step(name, fn, *args):
-        torch.cuda.synchronize()
-        if peaks is not None:
-            torch.cuda.reset_peak_memory_stats()
+        if cuda:
+            torch.cuda.synchronize()
+            if peaks is not None:
+                torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn(*args)
-        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.synchronize()
+            if peaks is not None:
+                peaks[name] = torch.cuda.max_memory_allocated()
         times[name] = time.perf_counter() - t0
-        if peaks is not None:
-            peaks[name] = torch.cuda.max_memory_allocated()
         return out
 
     return step
@@ -1818,6 +1840,355 @@ def _check_text(strs, res):
     return bad, sum(len(w) for w in words if w and w[0]), len(vocab)
 
 
+#: the clean phase's edge tokens: multi-char casings (ß, ŉ, ΐ), Greek
+#: sigmas, 4-byte UTF-8, NUL, whitespace, signs for zfill, casings that
+#: shrink (İ, ẞ)
+CLEAN_EDGES = ("ß", "ŉ", "ΐ", "Σ", "ς", "ΣΑΣ", "straße", "ŉo", "😀", "x😀y", "🔥🔥", "\x00", "a\x00b",
+               " ", "\t", "\n", "+12", "-", "-7", "+x", "İ", "ẞ", "ÀÉÎ", "õü", "RT", "the", "!", "m")
+CLEAN_EDGE_ROWS = 4096
+CLEAN_TRANSLATE = {"a": "4", "e": None, "é": "e", "😀": None, "!": "¡", "t": "T"}
+CLEAN_TARGETS = ("the", "a", "#", "é")
+CLEAN_WIDTH = 40
+
+
+def make_clean_rows(strs, seed: int = 5):
+    """strs and CLEAN_EDGE_ROWS seeded rows of 1-4 edge tokens joined by
+    spaces, a third of them with leading or trailing " \\n\\t" runs, and a
+    few empty, whitespace-only and null rows."""
+    rng = np.random.default_rng(seed)
+    ws = (" ", "\n", "\t", "  \t", "\n\n ")
+    out = []
+    for _ in range(CLEAN_EDGE_ROWS):
+        k = rng.random()
+        if k < 0.02:
+            out.append(None)
+        elif k < 0.04:
+            out.append("")
+        elif k < 0.08:
+            out.append("".join(ws[i] for i in rng.integers(0, len(ws), 2).tolist()))
+        else:
+            toks = [CLEAN_EDGES[i] for i in rng.integers(0, len(CLEAN_EDGES), rng.integers(1, 5)).tolist()]
+            row = " ".join(toks)
+            if rng.random() < 0.33:
+                row = ws[rng.integers(len(ws))] + row + ws[rng.integers(len(ws))]
+            out.append(row)
+    return list(strs) + out
+
+
+def _case_tables():
+    """(flags, swap) of every BMP code point, built as the 16-bit
+    reference table is, from Python's unicodedata: flags as the
+    predicates' bits (1 decimal, 2 numeric, 4 digit, 8 alpha, 16 space,
+    32 upper, 64 lower), swap the first code point of the opposite case
+    (so "ß" -> "S"), or the code point itself."""
+    flags, swap = [0] * 65536, list(range(65536))
+    for cp in range(65536):
+        ch = chr(cp)
+        f = (ch.isdecimal() | ch.isnumeric() << 1 | ch.isdigit() << 2 | ch.isalpha() << 3
+             | ch.isspace() << 4 | ch.isupper() << 5 | ch.islower() << 6)
+        flags[cp] = f
+        other = ch.lower() if f & 32 else ch.upper() if f & 64 else ch
+        if other != ch and ord(other[0]) < 65536:
+            swap[cp] = ord(other[0])
+    return flags, swap
+
+
+class _CleanOracle:
+    """The clean chain's semantics over a list of rows.  The case maps and
+    the predicates are the JAX package's, not `str`'s where they differ:
+    the case table is BMP-only and 1:1 (first code point of a multi-char
+    casing), a code point above it has no flags, islower/isupper hold
+    for a non-empty row without a letter of the other case ("123"), and
+    title starts a word after any char that is not alpha.  An ASCII row
+    takes the `str` method, which agrees there; the others go char by
+    char through the table."""
+
+    def __init__(self):
+        self.flags, swap = _case_tables()
+        self.lo = {cp: swap[cp] for cp in range(65536) if self.flags[cp] & 32 and swap[cp] != cp}
+        self.up = {cp: swap[cp] for cp in range(65536) if self.flags[cp] & 64 and swap[cp] != cp}
+        self.sw = {**self.lo, **self.up}
+
+    def _case_row(self, s, kind):
+        if kind == "lower":
+            return s.translate(self.lo)
+        if kind == "upper":
+            return s.translate(self.up)
+        if kind == "swapcase":
+            return s.translate(self.sw)
+        if kind == "capitalize":
+            return s[:1].translate(self.up) + s[1:].translate(self.lo)
+        out, prev_alpha = [], False
+        for ch in s:
+            cp = ord(ch)
+            alpha = cp < 65536 and bool(self.flags[cp] & 8)
+            out.append(ch.translate(self.lo if prev_alpha else self.up) if alpha else ch)
+            prev_alpha = alpha
+        return "".join(out)
+
+    def case(self, strs, kind):
+        fast = getattr(str, kind)
+        return [None if s is None else fast(s) if s.isascii() else self._case_row(s, kind) for s in strs]
+
+    _PRED = {"isalnum": 15, "isalpha": 8, "isdigit": 4, "isspace": 16, "isdecimal": 1, "isnumeric": 2}
+
+    def _pred_row(self, s):
+        """Every predicate of a non-ASCII row from one pass over its chars."""
+        fl = [self.flags[o] if o < 65536 else 0 for o in map(ord, s)]
+        out = {k: bool(fl) and all(f & m for f in fl) for k, m in self._PRED.items()}
+        for kind, good in (("islower", 64), ("isupper", 32)):
+            out[kind] = bool(fl) and not any(f & 8 and not f & good for f in fl)
+        return out
+
+    def preds(self, strs):
+        """{predicate: per-row values} for CLEAN_PREDICATES."""
+        slow = {i: self._pred_row(s) for i, s in enumerate(strs) if s is not None and not s.isascii()}
+        out = {"is_empty": [None if s is None else s == "" for s in strs]}
+        for kind in CLEAN_PREDICATES:
+            if kind == "is_empty":
+                continue
+            if kind in ("islower", "isupper"):
+                to = str.lower if kind == "islower" else str.upper
+                fast = lambda s: s != "" and to(s) == s  # noqa: E731
+            else:
+                fast = getattr(str, kind)
+            out[kind] = [None if s is None else slow[i][kind] if i in slow else fast(s)
+                         for i, s in enumerate(strs)]
+        return out
+
+
+_WRAP_CTRL = re.compile("[\x00-\x1f]")
+
+
+def wrap_py(s, width: int):
+    """The greedy wrap: every char <= ' ' becomes ' '; walking the chars,
+    once the current line reaches `width` chars and has seen a space since
+    its last break, that space becomes '\n' and starts the next line.
+    Event by event: a break comes at the later of the line's width and
+    the next space, at the last space up to there."""
+    if s is None:
+        return None
+    out = _WRAP_CTRL.sub(" ", s)
+    n = len(out)
+    if n <= width:
+        return out
+    pieces, spos, pb, done = [], 0, -1, 0
+    while (q := out.find(" ", pb + 1)) >= 0:
+        p = max(spos + width, q)
+        if p >= n:
+            break
+        ls = out.rfind(" ", 0, p + 1)
+        pieces += [out[done:ls], "\n"]
+        spos, pb, done = ls, p, ls + 1
+    return "".join(pieces) + out[done:] if pieces else out
+
+
+def compare_py(s, pat: str):
+    """find.cu compare: the first differing byte's difference, -1 where
+    the row is a proper prefix of pat, 1 where pat is one of the row."""
+    if s is None:
+        return None
+    a, b = s.encode(), pat.encode()
+    for t in range(len(b)):
+        if t >= len(a):
+            return -1
+        if a[t] != b[t]:
+            return a[t] - b[t]
+    return int(len(a) > len(b))
+
+
+def order_py(strs, stype: int, asc: bool, nullfirst: bool):
+    """Stable order (ties in row order): the null rows as one group first
+    or last, the others by byte length (stype 1), UTF-8 bytes (2) or both
+    (3), descending when not asc."""
+    enc = [None if s is None else s.encode() for s in strs]
+    keyf = {1: len, 2: lambda b: b, 3: lambda b: (len(b), b)}[stype]
+    live = sorted((i for i, b in enumerate(enc) if b is not None), key=lambda i: keyf(enc[i]),
+                  reverse=not asc)
+    nulls = [i for i, b in enumerate(enc) if b is None]
+    return nulls + live if nullfirst else live + nulls
+
+
+CLEAN_SORTS = ((1, True, True), (2, True, True), (3, True, True),
+               (1, False, False), (2, False, False), (3, False, False))
+CLEAN_PREDICATES = ("isalnum", "isalpha", "isdigit", "isspace", "isdecimal", "isnumeric",
+                    "islower", "isupper", "is_empty")
+
+
+def _clean_inputs(n: int, seed: int = 6):
+    """The per-row find_from starts and the scatter indexes, seeded."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, 12, n).tolist()
+    idx = rng.choice(n, size=min(1000, n), replace=False)
+    idx = [int(i) - n if k % 3 == 0 else int(i) for k, i in enumerate(idx.tolist())]
+    return starts, idx
+
+
+def _run_clean(torch, strs, device="cuda"):
+    """The cleanup chain through the facade; returns (host results,
+    per-op seconds, per-op peak device memory).  An op returning strings
+    is read back at once and its column freed.  The CPU tests run it with
+    device="cpu"."""
+    from custrings_tpu_torch import nvstrings
+
+    times, peaks, out = {}, {}, {}
+    step = _stepper(torch, times, peaks, cuda=device == "cuda")
+    n = len(strs)
+    starts, idx = _clean_inputs(n)
+    s = step("to_device", lambda: nvstrings.to_device(strs, device=device))
+    st = step("strip", s.strip)
+    out["strip"] = st.to_host()
+
+    def host(name, fn):
+        col = step(name, fn)
+        out[name] = col.to_host()
+
+    for kind in ("lower", "upper", "title", "capitalize", "swapcase"):
+        host(kind, getattr(st, kind))
+    host("translate", lambda: s.translate(CLEAN_TRANSLATE))
+    host("slice(2, 40, 3)", lambda: s.slice(2, 40, 3))
+    host("get(0)", lambda: s.get(0))
+    host("zfill(12)", lambda: s.zfill(12))
+    host('pad(40, "both", "*")', lambda: s.pad(CLEAN_WIDTH, "both", "*"))
+    host("wrap(40)", lambda: s.wrap(CLEAN_WIDTH))
+    out['startswith("RT")'] = step('startswith("RT")', lambda: s.startswith("RT"))
+    out['endswith("!")'] = step('endswith("!")', lambda: s.endswith("!"))
+    out['find_from("the")'] = step('find_from("the")', lambda: s.find_from("the", starts))
+    out['compare("m")'] = step('compare("m")', lambda: s.compare("m"))
+    out["match_strings"] = step("match_strings", lambda: s.match_strings(st))
+    out["find_multiple"] = step("find_multiple", lambda: s.find_multiple(list(CLEAN_TARGETS)))
+    out["len"] = step("len", s.len)
+    for p in CLEAN_PREDICATES:
+        out[p] = step(p, getattr(s, p))
+    del st
+    host('cat(sep="|", na_rep="-")', lambda: s.cat(s, sep="|", na_rep="-"))
+    host('fillna("-")', lambda: s.fillna("-"))
+    host('insert(5, "_X_")', lambda: s.insert(5, "_X_"))
+    host('slice_replace(2, 6, "##")', lambda: s.slice_replace(2, 6, "##"))
+    for stype, asc, nf in CLEAN_SORTS:
+        out[f"order{stype, asc, nf}"] = step(f"order{stype, asc, nf}", lambda: s.order(stype, asc, nf))
+        host(f"sort{stype, asc, nf}", lambda: s.sort(stype, asc, nf))
+    other = nvstrings.to_device(strs[: len(idx)], device=device)
+    host("scatter", lambda: s.scatter(other, idx))
+    host('scalar_scatter("X")', lambda: s.scalar_scatter("X", idx))
+    host("remove_strings", lambda: s.remove_strings(idx))
+    host("add_strings", lambda: s.add_strings(other))
+    return out, times, peaks
+
+
+def _check_clean(strs, res):
+    """Mismatches of each clean op against its oracle, every row."""
+    o = _CleanOracle()
+    t_wrap = time.perf_counter()
+    want_wrap = [wrap_py(x, CLEAN_WIDTH) for x in strs]
+    wrap_s = time.perf_counter() - t_wrap
+    stripped = [None if x is None else x.strip(" \n\t") for x in strs]
+    starts, idx = _clean_inputs(len(strs))
+
+    def translated(x):
+        # CLEAN_TRANSLATE's keys are single chars and no value holds a
+        # later key, so its replaces in turn are str.translate with it
+        for k, v in CLEAN_TRANSLATE.items():
+            x = x.replace(k, v or "")
+        return x
+
+    def center(x):
+        p = max(CLEAN_WIDTH - len(x), 0)
+        return "*" * (p // 2) + x + "*" * (p - p // 2)
+
+    def each(fn):
+        return [None if x is None else fn(x) for x in strs]
+
+    bad = {
+        "strip": _mismatches(res["strip"], stripped),
+        "translate": _mismatches(res["translate"], each(translated)),
+        "slice(2, 40, 3)": _mismatches(res["slice(2, 40, 3)"], each(lambda x: x[2:40:3])),
+        "get(0)": _mismatches(res["get(0)"], each(lambda x: x[:1])),
+        "zfill(12)": _mismatches(res["zfill(12)"], each(lambda x: x.zfill(12))),
+        'pad(40, "both", "*")': _mismatches(res['pad(40, "both", "*")'], each(center)),
+        "wrap(40)": _mismatches(res["wrap(40)"], want_wrap),
+        'startswith("RT")': _mismatches(res['startswith("RT")'], each(lambda x: x.startswith("RT"))),
+        'endswith("!")': _mismatches(res['endswith("!")'], each(lambda x: x.endswith("!"))),
+        'find_from("the")': _mismatches(res['find_from("the")'], [
+            None if x is None else x.find("the", a) for x, a in zip(strs, starts)]),
+        'compare("m")': _mismatches(res['compare("m")'], [compare_py(x, "m") for x in strs]),
+        "match_strings": _mismatches(res["match_strings"], [a == b for a, b in zip(strs, stripped)]),
+        "find_multiple": _mismatches(res["find_multiple"], [
+            [None] * len(CLEAN_TARGETS) if x is None else [x.find(t) for t in CLEAN_TARGETS] for x in strs]),
+        "len": _mismatches(res["len"], each(len)),
+        'cat(sep="|", na_rep="-")': _mismatches(res['cat(sep="|", na_rep="-")'], [
+            ("-" if x is None else x) + "|" + ("-" if x is None else x) for x in strs]),
+        'fillna("-")': _mismatches(res['fillna("-")'], ["-" if x is None else x for x in strs]),
+        'insert(5, "_X_")': _mismatches(res['insert(5, "_X_")'], each(lambda x: x[:5] + "_X_" + x[5:])),
+        'slice_replace(2, 6, "##")': _mismatches(res['slice_replace(2, 6, "##")'],
+                                                  each(lambda x: x[:2] + "##" + x[6:])),
+    }
+    for kind in ("lower", "upper", "title", "capitalize", "swapcase"):
+        bad[kind] = _mismatches(res[kind], o.case(stripped, kind))
+    for p, want in o.preds(strs).items():
+        bad[p] = _mismatches(res[p], want)
+    for key in CLEAN_SORTS:
+        want = order_py(strs, *key)
+        bad[f"order{key}"] = _mismatches(res[f"order{key}"], want)
+        bad[f"sort{key}"] = _mismatches(res[f"sort{key}"], [strs[i] for i in want])
+    n, other = len(strs), strs[: len(idx)]
+    scattered, single = list(strs), list(strs)
+    for k, i in enumerate(idx):
+        scattered[i] = other[k]
+        single[i] = "X"
+    drop = {i % n for i in idx}
+    bad["scatter"] = _mismatches(res["scatter"], scattered)
+    bad['scalar_scatter("X")'] = _mismatches(res['scalar_scatter("X")'], single)
+    bad["remove_strings"] = _mismatches(res["remove_strings"], [x for i, x in enumerate(strs) if i not in drop])
+    bad["add_strings"] = _mismatches(res["add_strings"], list(strs) + other)
+    return bad, wrap_s
+
+
+def _clean_kernel_shapes(torch, strs, device="cuda"):
+    """K4e, K1b and K1 at the clean path's own calls, captured by wrapping
+    the names their callers look up, each with its own bound: charwise's
+    byte expansion of lower() (the codepoints to the byte capacity, with
+    placed; K4e), order()'s key words (K1b), compare()'s view of the
+    rows' first bytes (K1).  Returns [(name, source, replaces, shapes)];
+    the CPU tests run it with device="cpu"."""
+    from custrings_tpu_torch import column
+    from custrings_tpu_torch.ops import array, case, find, layout, route, shift_compact, window
+
+    col = column.from_host_strings(strs, device)
+    with _Calls((shift_compact, "expand_to")) as k4e:
+        case.lower(col)
+    with _Calls((array, "ragged_gather_words")) as k1b:
+        array.order(col, 2)
+    with _Calls((layout, "ragged_gather")) as k1:
+        find.compare(col, "m")
+    if len(k4e.calls) != 1 or len(k1b.calls) != 1 or len(k1.calls) != 1:
+        raise AssertionError(f"clean path calls not captured: K4e {len(k4e.calls)}, K1b {len(k1b.calls)}, "
+                             f"K1 {len(k1.calls)} (want one each)")
+
+    def expand(live, dist, planes, out_cap, want=True):
+        return (f"i32[{live.shape[0]}] -> [{out_cap}] with placed, lower()'s charwise bytes",
+                lambda: _expanded(route.expand_stream(live, dist, planes, out_cap, want)),
+                lambda: _expanded(route._expand_plain(live.bool(), dist.to(torch.int32), planes, out_cap, want)),
+                {"bound": _expand_bound(live, planes, out_cap, want)})
+
+    def words(data, st, w):
+        rows, wq = st.shape[0], -(-w // 4)
+        return (f"i32[{rows},{wq}] order()'s key words, width {w}",
+                lambda: window.ragged_gather_words(data, st, w),
+                lambda: _chunked(torch, lambda i, j: window._words_plain(data, st[i:j], w), rows, 4 * wq),
+                {"bound": _words_bound(torch, data, st, w)})
+
+    def view(data, st, w, lens):
+        return (f"u8[{st.shape[0]},{w}] compare()'s view, masked at the lengths",
+                lambda: window.ragged_gather(data, st, w, lens),
+                lambda: window._gather_plain(data, st, w, lens),
+                {"bound": _window_bound(lens, w, 1)})
+
+    return [("route_expand", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:448", [expand(*k4e.calls[0][1])]),
+            ("window_words", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170", [words(*k1b.calls[0][1])]),
+            ("window_bytes", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170", [view(*k1.calls[0][1])])]
+
+
 def _driven(torch, kernels, run, strs):
     """Run one path with every launch counter set to 0 just before it and
     read just after; returns (run's result, the counters)."""
@@ -1836,6 +2207,7 @@ MATCHER_KERNELS = ("nfa_words",)
 HASH_KERNELS = ("hash",)
 COMPACT_KERNELS = ("compact_bytes",)
 TEXT_KERNELS = ("scan_sum", "route_compact", "window_bytes", "window_words")
+CLEAN_KERNELS = ("scan_sum", "route_compact", "route_expand", "window_bytes", "window_words")
 
 
 def main() -> int:
@@ -1996,13 +2368,38 @@ def main() -> int:
         by_name[t["name"]]["max_abs_err"] = max(by_name[t["name"]]["max_abs_err"], t["max_abs_err"])
     torch.cuda.empty_cache()
 
+    # the cleanup chain: the tweet rows and CLEAN_EDGE_ROWS edge rows
+    clean_strs = make_clean_rows(strs)
+    t_clean = time.perf_counter()
+    _run_clean(torch, clean_strs[-4096:])  # first use
+    (cres, ctimes, cpeaks), clean_launches = _driven(torch, kernels, _run_clean, clean_strs)
+    t_check = time.perf_counter()
+    cbad, wrap_s = _check_clean(clean_strs, cres)
+    _emit({"phase": "clean", "rows": len(clean_strs), "edge_rows": CLEAN_EDGE_ROWS,
+           "ms": {k: v * 1e3 for k, v in ctimes.items()}, "max_memory_allocated": max(cpeaks.values()),
+           "max_memory_allocated_by_op": cpeaks, "oracle_seconds": time.perf_counter() - t_check,
+           "wrap_oracle_seconds": wrap_s, "phase_seconds": time.perf_counter() - t_clean,
+           "script_seconds_before_phase": t_clean - t_main, "mismatches": cbad})
+    if any(cbad.values()):
+        raise AssertionError(f"clean ops disagree with their oracles: {cbad}")
+    del cres
+    torch.cuda.empty_cache()
+    clean_cases = [(name, src, rep, shapes, shapes[0][3]["bound"], None)
+                   for name, src, rep, shapes in _clean_kernel_shapes(torch, clean_strs)]
+    for t in _measure(torch, clean_cases, slow=("window_words", "route_expand"), phase="kernel_clean"):
+        by_name[t["name"]]["shapes"] += t["shapes"]
+        by_name[t["name"]]["max_abs_err"] = max(by_name[t["name"]]["max_abs_err"], t["max_abs_err"])
+    torch.cuda.empty_cache()
+
     paths = {"slice": slice_launches, "spans": span_launches, "matchers": matcher_launches,
-             "hash": hash_launches, "compact": compact_launches, "text": text_launches}
+             "hash": hash_launches, "compact": compact_launches, "text": text_launches,
+             "clean": clean_launches}
     _emit({"phase": "launches", **paths})
     missing = []
     for path_name, need in (("slice", SLICE_KERNELS), ("spans", SPAN_KERNELS),
                             ("matchers", MATCHER_KERNELS), ("hash", HASH_KERNELS),
-                            ("compact", COMPACT_KERNELS), ("text", TEXT_KERNELS)):
+                            ("compact", COMPACT_KERNELS), ("text", TEXT_KERNELS),
+                            ("clean", CLEAN_KERNELS)):
         missing += [f"{path_name}: {k}" for k in need if paths[path_name][k] <= 0]
     if missing:
         raise AssertionError(f"kernels their path never launched: {missing}")

@@ -1,26 +1,40 @@
 """nvstrings facade over the port's ops.
 
 Port of the entry points of `custrings_tpu/nvstrings.py` that the ported
-ops serve: `to_device`, `to_host`, `size`, `contains` (regex or literal),
-`match`, `count`, `findall`, `findall_record`, `hash`, `replace` (literal
-of any length, or regex for certified span programs), `join`,
-`split_record`, `split`, `rsplit_record` and `rsplit` (on a delimiter or
-on whitespace), `partition` and `rpartition`.  Return shapes are the JAX
-facade's.  The rest of the ~95 methods follow the ROADMAP's queue 1.
+ops serve: construction and export (`to_device`, `to_host`, `size`), the
+row attributes and predicates (`len`, `byte_count`, `null_count`, the
+`is*`), search (`contains`, `match`, `count`, `find`, `rfind`,
+`find_from`, `find_multiple`, `index`, `rindex`, `compare`,
+`match_strings`, `startswith`, `endswith`, `findall`, `findall_record`),
+`hash`, rewrites (`replace`, `translate`, the case maps, `strip` and its
+sides, `slice`, `slice_from`, `get`, `slice_replace`, `insert`,
+`fillna`, `repeat`, the paddings, `zfill`, `wrap`), joins (`join`,
+`cat`), splits (`split_record`, `split`, `rsplit_record`, `rsplit`,
+`partition`, `rpartition`) and row moves (`sort`, `order`, `sublist`,
+`gather`, `scatter`, `scalar_scatter`, `remove_strings`, `add_strings`).
+Return shapes are the JAX facade's, with None for a null row's value.
+The rest of its 92 methods follow the ROADMAP's queue 1.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from . import column as _col
+from .ops import array as _array
+from .ops import attrs as _attrs
+from .ops import case as _case
 from .ops import combine as _combine
 from .ops import find as _find
 from .ops import hash as _hash
 from .ops import modify as _modify
+from .ops import pad as _pad
 from .ops import split as _split
+from .ops import strip as _strip
+from .ops import substr as _substr
 from .ops.substr import _span_column
 from .regex import ops as _rx
 
@@ -42,6 +56,113 @@ class nvstrings:
 
     def size(self):
         return self._col.size
+
+    def _other(self, strs):
+        """The column of an nvstrings, or of a list of str / None on this
+        column's device."""
+        return strs._col if isinstance(strs, nvstrings) else _col.from_host_strings(list(strs), self._col.device)
+
+    # ---- attributes ----
+
+    def len(self):
+        """Per row: its char count (None for null rows)."""
+        return self._masked(_attrs.len_chars(self._col))
+
+    def byte_count(self, vals=0):
+        """The column's total bytes; a numpy `vals` gets each row's (-1
+        for null rows)."""
+        out = _attrs.byte_count(self._col).cpu().numpy()
+        if isinstance(vals, np.ndarray):
+            vals[: len(out)] = out
+        return int(np.maximum(out, 0).sum())
+
+    def null_count(self, emptyisnull=False):
+        return _col.null_count(self._col, emptyisnull)
+
+    def isalnum(self):
+        return self._masked(_attrs.isalnum(self._col))
+
+    def isalpha(self):
+        return self._masked(_attrs.isalpha(self._col))
+
+    def isdigit(self):
+        return self._masked(_attrs.isdigit(self._col))
+
+    def isspace(self):
+        return self._masked(_attrs.isspace(self._col))
+
+    def isdecimal(self):
+        return self._masked(_attrs.isdecimal(self._col))
+
+    def isnumeric(self):
+        return self._masked(_attrs.isnumeric(self._col))
+
+    def islower(self):
+        """Per row: non-empty with no upper-case letter ("123" is lower)."""
+        return self._masked(_attrs.islower(self._col))
+
+    def isupper(self):
+        """Per row: non-empty with no lower-case letter."""
+        return self._masked(_attrs.isupper(self._col))
+
+    def is_empty(self):
+        return self._masked(_attrs.is_empty(self._col))
+
+    # ---- search ----
+
+    def compare(self, str):
+        """Per row: 0 equal to `str`, < 0 before it, > 0 after it, byte by
+        byte (None for null rows)."""
+        return self._masked(_find.compare(self._col, str))
+
+    @staticmethod
+    def _positions(res):
+        return [None if x == -2 else x for x in res.cpu().tolist()]
+
+    def find(self, sub, start=0, end=None):
+        """Per row: the char position of the first `sub` in [start, end)
+        (-1 none, None for null rows)."""
+        return self._positions(_find.find(self._col, sub, start, end))
+
+    def rfind(self, sub, start=0, end=None):
+        return self._positions(_find.rfind(self._col, sub, start, end))
+
+    def index(self, sub, start=0, end=None):
+        """find, raising ValueError where a row has no `sub`."""
+        out = self.find(sub, start, end)
+        if -1 in out:
+            raise ValueError("substring not found")
+        return out
+
+    def rindex(self, sub, start=0, end=None):
+        out = self.rfind(sub, start, end)
+        if -1 in out:
+            raise ValueError("substring not found")
+        return out
+
+    def find_from(self, sub, starts=0, ends=0):
+        """find with per-row char windows (0 for either: the whole row)."""
+        s = None if isinstance(starts, int) and starts == 0 else starts
+        e = None if isinstance(ends, int) and ends == 0 else ends
+        return self._positions(_find.find_from(self._col, sub, s, e))
+
+    def find_multiple(self, strs):
+        """Per row: the first position of each of `strs` (None for null
+        rows' entries)."""
+        res = _find.find_multiple(self._col, self._other(strs))
+        nulls = [None] * res.shape[1]
+        # -2 marks a null row, in every column of it
+        return [r if v else nulls[:] for r, v in zip(res.cpu().tolist(), self._col.validity.cpu().tolist())]
+
+    def match_strings(self, strs):
+        """Per row: equal to the same row of `strs` (two nulls match)."""
+        return _find.match_strings(self._col, self._other(strs)).cpu().tolist()
+
+    def startswith(self, pat):
+        return self._masked(_find.startswith(self._col, pat))
+
+    def endswith(self, pat):
+        return self._masked(_find.endswith(self._col, pat))
 
     def contains(self, pat, regex=True):
         """Per row: does `pat` occur (None for null rows)."""
@@ -84,6 +205,136 @@ class nvstrings:
         """The whole column as one string, the rows joined by `sep` (null
         rows skipped)."""
         return nvstrings(_combine.join(self._col, sep))
+
+    def cat(self, others=None, sep=None, na_rep=None):
+        """Row i joined to row i of `others` by `sep`; without `others`,
+        the whole column joined; a list of columns is catted in turn."""
+        if others is None:
+            return nvstrings(_combine.join(self._col, sep or "", na_rep))
+        if isinstance(others, (list, tuple)) and not all(o is None or isinstance(o, str) for o in others):
+            cur = self
+            for o in others:
+                cur = cur.cat(o, sep=sep, na_rep=na_rep)
+            return cur
+        return nvstrings(_combine.cat(self._col, self._other(others), sep, na_rep))
+
+    # ---- rewrites ----
+
+    def get(self, i):
+        """Per row: its char at position i."""
+        return nvstrings(_substr.get_char(self._col, i))
+
+    def slice(self, start, stop=None, step=None):
+        return nvstrings(_substr.slice_chars(self._col, start, stop, step))
+
+    def slice_from(self, starts=0, stops=0):
+        """Per-row char windows (0 for either: the whole row)."""
+        s = None if isinstance(starts, int) and starts == 0 else starts
+        e = None if isinstance(stops, int) and stops == 0 else stops
+        return nvstrings(_substr.slice_from(self._col, s, e))
+
+    def slice_replace(self, start=None, stop=None, repl=None):
+        return nvstrings(_modify.slice_replace(self._col, start or 0, stop, repl))
+
+    def insert(self, start=0, repl=None):
+        return nvstrings(_modify.insert(self._col, start, repl or ""))
+
+    def fillna(self, repl):
+        """Null rows become `repl` (a str, or the rows of an nvstrings)."""
+        if isinstance(repl, nvstrings):
+            return nvstrings(_modify.fillna_column(self._col, repl._col))
+        return nvstrings(_modify.fillna_scalar(self._col, repl))
+
+    def repeat(self, repeats):
+        return nvstrings(_pad.repeat(self._col, repeats))
+
+    def pad(self, width, side="left", fillchar=" "):
+        return nvstrings(_pad.pad(self._col, width, side, fillchar))
+
+    def ljust(self, width, fillchar=" "):
+        return nvstrings(_pad.ljust(self._col, width, fillchar))
+
+    def center(self, width, fillchar=" "):
+        return nvstrings(_pad.center(self._col, width, fillchar))
+
+    def rjust(self, width, fillchar=" "):
+        return nvstrings(_pad.rjust(self._col, width, fillchar))
+
+    def zfill(self, width):
+        return nvstrings(_pad.zfill(self._col, width))
+
+    def wrap(self, width):
+        return nvstrings(_pad.wrap(self._col, width))
+
+    def lstrip(self, to_strip=None):
+        return nvstrings(_strip.lstrip(self._col, to_strip))
+
+    def strip(self, to_strip=None):
+        """Each row without its leading and trailing chars of `to_strip`
+        (by default " \n\t")."""
+        return nvstrings(_strip.strip(self._col, to_strip))
+
+    def rstrip(self, to_strip=None):
+        return nvstrings(_strip.rstrip(self._col, to_strip))
+
+    def lower(self):
+        return nvstrings(_case.lower(self._col))
+
+    def upper(self):
+        return nvstrings(_case.upper(self._col))
+
+    def capitalize(self):
+        return nvstrings(_case.capitalize(self._col))
+
+    def swapcase(self):
+        return nvstrings(_case.swapcase(self._col))
+
+    def title(self):
+        return nvstrings(_case.title(self._col))
+
+    def translate(self, table):
+        """Chars mapped through `table` ({char or ord: char, ord or None});
+        None deletes the char."""
+        return nvstrings(_modify.translate(self._col, table))
+
+    # ---- row moves ----
+
+    def sort(self, stype=2, asc=True, nullfirst=True):
+        """Rows sorted by byte length (stype 1), name (2) or both (3)."""
+        return nvstrings(_array.sort(self._col, stype, asc, nullfirst))
+
+    def order(self, stype=2, asc=True, nullfirst=True):
+        """The row indices of sort(), ties in row order."""
+        return _array.order(self._col, stype, asc, nullfirst).cpu().tolist()
+
+    def sublist(self, indexes, count=0):
+        return self.gather(indexes, count)
+
+    def gather(self, indexes, count=0):
+        """The rows at `indexes` (negative ones wrap), or where a boolean
+        list is True."""
+        arr = np.asarray(indexes)
+        if arr.dtype == np.bool_:
+            mask = torch.from_numpy(arr.copy()).to(self._col.device)
+            return nvstrings(_array.gather_mask(self._col, mask))
+        return nvstrings(_array.gather(self._col, arr.astype(np.int64)))
+
+    def scatter(self, strs, indexes):
+        """Rows at `indexes` replaced by the rows of `strs`."""
+        return nvstrings(_array.scatter(self._col, self._other(strs), np.asarray(indexes)))
+
+    def scalar_scatter(self, str, indexes, count=0):
+        """Rows at `indexes` replaced by `str`."""
+        return nvstrings(_array.scalar_scatter(self._col, self._other([str]), np.asarray(indexes)))
+
+    def remove_strings(self, indexes, count=0):
+        return nvstrings(_array.remove_strings(self._col, indexes))
+
+    def add_strings(self, strs):
+        """The rows of this column, then those of `strs` (an nvstrings, a
+        list of str, or a list of nvstrings)."""
+        items = strs if isinstance(strs, list) and any(isinstance(s, nvstrings) for s in strs) else [strs]
+        return nvstrings(_array.append([self._col] + [self._other(s) for s in items]))
 
     def split_record(self, delimiter=None, n=-1):
         """Per row: an nvstrings of its tokens (None for null rows); on

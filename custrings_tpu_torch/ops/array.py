@@ -1,7 +1,8 @@
-"""Row gather and the packed-key sort order.
+"""Row gather, append, scatter and the packed-key sort order.
 
 Port of `custrings_tpu/ops/array.py`: `_gather_impl` / `gather`,
-`gather_mask`, `_mask_word_tails`, `_key_words` and `_order_impl`.  Sort keys are
+`gather_mask`, `append`, `scatter`, `scalar_scatter`, `remove_strings`,
+`_mask_word_tails`, `_key_words`, `order` / `_order_impl` and `sort`.  Sort keys are
 big-endian 32-bit words of each row's bytes, gathered by K1b
 (`ragged_gather_words`) at every size, or packed from the streaming
 padded view where the layout's `STREAM_VIEW_MIN` routes to it (the JAX
@@ -23,6 +24,8 @@ from .substr import _span_column
 from .window import ragged_gather_words
 
 _U32 = 0xFFFFFFFF
+SORT_LENGTH = 1
+SORT_NAME = 2
 
 
 def _gather_impl(col: StringColumn, idx: torch.Tensor, capacity: int) -> StringColumn:
@@ -50,6 +53,53 @@ def gather(col: StringColumn, indexes) -> StringColumn:
 def gather_mask(col: StringColumn, mask: torch.Tensor) -> StringColumn:
     """The rows where mask is True, in order (array.cu gather:117)."""
     return gather(col, torch.nonzero(mask).flatten())
+
+
+def append(cols) -> StringColumn:
+    """The columns' rows one after another (NVStrings.cu:113-135)."""
+    dev = cols[0].device
+    datas, offs, vals, shift = [], [], [], 0
+    for c in cols:
+        nb = c.nbytes()
+        datas.append(c.data[:nb])
+        offs.append(c.offsets[:-1] + shift)
+        vals.append(c.validity)
+        shift += nb
+    datas.append(torch.zeros(bucket_bytes(shift) - shift, dtype=torch.uint8, device=dev))
+    offs.append(torch.tensor([shift], dtype=torch.int32, device=dev))
+    return StringColumn(torch.cat(datas), torch.cat(offs).to(torch.int32), torch.cat(vals))
+
+
+def _index_tensor(indexes, device) -> torch.Tensor:
+    if isinstance(indexes, torch.Tensor):
+        return indexes.to(device, torch.int64)
+    return torch.as_tensor(np.asarray(indexes, dtype=np.int64)).to(device)
+
+
+def scatter(col: StringColumn, strs: StringColumn, indexes) -> StringColumn:
+    """Rows at `indexes` (negative ones wrap) replaced by the rows of
+    `strs`, in order (array.cu scatter:149)."""
+    idx = _index_tensor(indexes, col.device)
+    idx = torch.where(idx < 0, idx + col.size, idx)
+    take = torch.arange(col.size, dtype=torch.int64, device=col.device)
+    take[idx] = col.size + torch.arange(strs.size, dtype=torch.int64, device=col.device)
+    return gather(append([col, strs]), take)
+
+
+def scalar_scatter(col: StringColumn, one: StringColumn, indexes) -> StringColumn:
+    """Rows at `indexes` replaced by the one row of `one` (array.cu
+    scatter:186)."""
+    take = torch.arange(col.size, dtype=torch.int64, device=col.device)
+    take[_index_tensor(indexes, col.device)] = col.size
+    return gather(append([col, one]), take)
+
+
+def remove_strings(col: StringColumn, indexes) -> StringColumn:
+    """The column without the rows at `indexes` (array.cu
+    remove_strings:244); the kept ids are found on the host."""
+    idx = np.asarray(indexes.cpu() if isinstance(indexes, torch.Tensor) else indexes, dtype=np.int64)
+    idx = np.where(idx < 0, idx + col.size, idx)
+    return gather(col, np.setdiff1d(np.arange(col.size), idx))
 
 
 def _mask_word_tails(be: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -103,12 +153,37 @@ def lsd_order(keys) -> torch.Tensor:
     return perm
 
 
-def _order_impl(col: StringColumn, width: int):
-    """Row indices int64[rows] in ascending name order with nulls first:
-    the JAX `_order_impl` for its one caller here (SORT_NAME, ascending,
-    null first).  Keys: validity, the key words, then the byte length."""
-    words = _key_words(col, width)
-    keys = [col.validity.to(torch.int64)]
-    keys += [u32_key(words[:, i]) for i in range(words.shape[1])]
-    keys.append(col.lengths().to(torch.int64))
+def _order_impl(col: StringColumn, width: int, stype: int = SORT_NAME, asc: bool = True,
+                nullfirst: bool = True) -> torch.Tensor:
+    """Row indices int64[rows] in sorted order.  Keys, most significant
+    first: the null group (first or last by `nullfirst`, in either
+    direction); with SORT_LENGTH the byte length; with SORT_NAME the key
+    words of the first `width` bytes, then the byte length (embedded NULs
+    compare as padding in the words).  Descending flips every key but the
+    null group's; ties keep row order."""
+    valid = col.validity.to(torch.int64)
+    keys = [valid if nullfirst else 1 - valid]
+    lens = col.lengths().to(torch.int64)
+    lk = lens if asc else _U32 - lens
+    if stype & SORT_LENGTH:
+        keys.append(lk)
+    if stype & SORT_NAME:
+        words = _key_words(col, width)
+        keys += [u32_key(words[:, i] if asc else ~words[:, i]) for i in range(words.shape[1])]
+        keys.append(lk)
     return lsd_order(keys)
+
+
+def order(col: StringColumn, stype: int = SORT_NAME, asc: bool = True,
+          nullfirst: bool = True) -> torch.Tensor:
+    """Sorted row indices (array.cu order:330): stype 1 = byte length, 2 =
+    name, 3 = length then name."""
+    if col.size == 0:
+        return torch.zeros(0, dtype=torch.int64, device=col.device)
+    width = -(-layout.max_row_bytes(col) // 4) * 4
+    return _order_impl(col, width, int(stype), bool(asc), bool(nullfirst))
+
+
+def sort(col: StringColumn, stype: int = SORT_NAME, asc: bool = True,
+         nullfirst: bool = True) -> StringColumn:
+    return gather(col, order(col, stype, asc, nullfirst))

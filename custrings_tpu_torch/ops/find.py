@@ -1,13 +1,12 @@
-"""Literal search: find / rfind / contains and the occurrence count.
+"""Literal search: find / rfind / contains, prefixes, compares and the
+occurrence count.
 
-Port of `_pat_array`, `_match_mask`, `_find_impl`, `find`, `rfind`,
-`contains`, `count_literal` and `_count_literal_impl` from
-`custrings_tpu/ops/find.py`.  The whole flat byte buffer is matched
-against the pattern at every byte position at once (m shifted compares),
-then per-row results come from one prefix count of the hits (K3).
-Positions are CHARACTER indexes, as in the reference (find.cu; -1 = no
-match, -2 = null row).  The rest of the family (startswith, compare,
-find_multiple, ...) is not ported yet (ROADMAP queue 1, item 4).
+Port of `custrings_tpu/ops/find.py`.  The whole flat byte buffer is
+matched against the pattern at every byte position at once (m shifted
+compares), then per-row results come from one prefix count of the hits
+(K3).  Positions are CHARACTER indexes, as in the reference (find.cu; -1 =
+no match, -2 = null row).  `compare` and `match_strings` read each row's
+leading bytes from a padded view (the K1 window, `layout.padded_view`).
 """
 
 from __future__ import annotations
@@ -95,9 +94,81 @@ def rfind(col: StringColumn, pat, start=0, end=None) -> torch.Tensor:
     return _find_impl(col, _pat_array(pat, col.device), *_window(col, start, end), True)
 
 
+def find_from(col: StringColumn, pat, starts=None, ends=None) -> torch.Tensor:
+    """find with per-row char windows [starts[i], ends[i]) (an end < 0
+    means the row's end)."""
+    n, dev = col.size, col.device
+    starts = (torch.zeros(n, dtype=torch.int32, device=dev) if starts is None
+              else torch.as_tensor(starts, dtype=torch.int32).to(dev))
+    ends = (torch.full((n,), -1, dtype=torch.int32, device=dev) if ends is None
+            else torch.as_tensor(ends, dtype=torch.int32).to(dev))
+    return _find_impl(col, _pat_array(pat, dev), starts, ends, False)
+
+
 def contains(col: StringColumn, pat) -> torch.Tensor:
     """bool[rows]; null rows -> False (find.cu contains:237)."""
     return find(col, pat) >= 0
+
+
+def _prefix_suffix(col: StringColumn, pat: torch.Tensor, suffix: bool) -> torch.Tensor:
+    """bool[rows]: the row starts (ends) with pat; False for null rows."""
+    m = pat.shape[0]
+    lens = col.lengths()
+    start = col.offsets[1:] - m if suffix else col.offsets[:-1]
+    acc = torch.ones(col.size, dtype=torch.bool, device=col.device)
+    for t in range(m):
+        acc &= layout.gather_bytes(col.data, start + t) == pat[t]
+    return acc & (lens >= m) & col.validity
+
+
+def startswith(col: StringColumn, pat) -> torch.Tensor:
+    return _prefix_suffix(col, _pat_array(pat, col.device), False)
+
+
+def endswith(col: StringColumn, pat) -> torch.Tensor:
+    return _prefix_suffix(col, _pat_array(pat, col.device), True)
+
+
+def compare(col: StringColumn, pat) -> torch.Tensor:
+    """int32[rows]: 0 where the row equals pat; else the difference of the
+    first differing bytes, -1 where the row is a proper prefix of pat and
+    1 where pat is one of the row; -1 for null rows (find.cu compare:36)."""
+    p = _pat_array(pat, col.device)
+    m = p.shape[0]
+    lens = col.lengths()
+    if m == 0:
+        res = (lens > 0).to(torch.int32)
+    else:
+        # the first m bytes of each row, zero past its length (K1)
+        view = layout.padded_view(col, m).to(torch.int32)
+        t = torch.arange(m, dtype=torch.int32, device=col.device)[None, :]
+        off = (t >= lens[:, None]) | (view != p.to(torch.int32)[None, :])
+        first = torch.where(off, t, m).amin(dim=1)
+        at = view.gather(1, first.clamp(max=m - 1)[:, None].to(torch.int64))[:, 0]
+        diff = torch.where(first >= lens, -1, at - p.to(torch.int32)[first.clamp(max=m - 1)])
+        res = torch.where(first < m, diff, (lens > m).to(torch.int32))
+    return torch.where(col.validity, res, -1).to(torch.int32)
+
+
+def match_strings(col: StringColumn, other: StringColumn) -> torch.Tensor:
+    """bool[rows]: the rows of the two columns are equal; two nulls match
+    each other (find.cu match_strings:276)."""
+    w = max(layout.max_row_bytes(col), layout.max_row_bytes(other))
+    eq = (layout.padded_view(col, w) == layout.padded_view(other, w)).all(dim=1)
+    eq &= col.lengths() == other.lengths()
+    both_null = ~col.validity & ~other.validity
+    return torch.where(col.validity & other.validity, eq, both_null)
+
+
+def find_multiple(col: StringColumn, targets: StringColumn) -> torch.Tensor:
+    """int32[rows, targets]: the first char position of each target in
+    each row (-1 none, -2 null row); a null target searches for ""."""
+    from ..column import to_host_strings
+
+    found = [find(col, "" if t is None else t) for t in to_host_strings(targets)]
+    if not found:
+        return torch.zeros((col.size, 0), dtype=torch.int32, device=col.device)
+    return torch.stack(found, dim=1)
 
 
 def count_literal(col: StringColumn, pat) -> torch.Tensor:

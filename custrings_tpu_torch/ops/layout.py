@@ -4,7 +4,8 @@ Port of the main-path part of `custrings_tpu/ops/layout.py`: the
 memoized planes (`tail_plane`, `row_bounds_planes`), the ASCII facts
 (`is_ascii`, `row_nonascii_ids`), `max_row_bytes`, `padded_view`,
 `char_matrix` / `char_matrix_rows`, the host-side `length_buckets`, the
-column-wide char index (`char_map`, `codepoints`) and `gather_bytes`.
+column-wide char index (`char_map`, `char_counts`, `codepoints`),
+`utf8_width`, `encode_codepoints` and `gather_bytes`.
 
 A padded view is built by the window gather (K1, `ops/window.py`),
 which masks at each row's length in the kernel, at every size.  The
@@ -443,6 +444,11 @@ def char_map(col: StringColumn) -> CharMap:
     return c["char_map"]
 
 
+def char_counts(col: StringColumn) -> torch.Tensor:
+    """Characters per row, int32[rows] (before null masking)."""
+    return char_map(col).nchars()
+
+
 def char_byte_pos(col: StringColumn, g: torch.Tensor) -> torch.Tensor:
     """int32[rows]: byte position of the column's g-th char (g per row; at
     or past the column's last char it is the end of the bytes), clamped
@@ -488,3 +494,28 @@ def codepoints(col: StringColumn) -> torch.Tensor:
             pos = char_map(col).char_pos.to(torch.int64)
             c["codepoints"] = _codepoints_at_bytes(col.data)[pos]
     return c["codepoints"]
+
+
+def utf8_width(cp: torch.Tensor) -> torch.Tensor:
+    """int32: the bytes of each codepoint's UTF-8 encoding (1..4)."""
+    return 1 + (cp >= 0x80).to(torch.int32) + (cp >= 0x800).to(torch.int32) + (
+        cp >= 0x10000
+    ).to(torch.int32)
+
+
+def encode_codepoints(cp: torch.Tensor):
+    """Codepoints to UTF-8: (uint8[n, 4] bytes, of which the first width
+    are the char's; int32[n] widths 1..4)."""
+    cp = cp.to(torch.int32)
+    w = utf8_width(cp)
+    lead = torch.where(
+        w == 1, cp,
+        torch.where(w == 2, 0xC0 | (cp >> 6), torch.where(w == 3, 0xE0 | (cp >> 12), 0xF0 | (cp >> 18))),
+    )
+    byte1 = torch.where(
+        w == 2, 0x80 | (cp & 0x3F),
+        torch.where(w == 3, 0x80 | ((cp >> 6) & 0x3F), 0x80 | ((cp >> 12) & 0x3F)),
+    )
+    byte2 = torch.where(w == 3, 0x80 | (cp & 0x3F), 0x80 | ((cp >> 6) & 0x3F))
+    byte3 = 0x80 | (cp & 0x3F)
+    return torch.stack([lead, byte1, byte2, byte3], dim=-1).to(torch.uint8), w

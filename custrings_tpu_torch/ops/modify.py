@@ -1,9 +1,11 @@
-"""Literal replace.
+"""Literal replace, fillna, insert, slice_replace and translate.
 
-Port of the literal replace of `custrings_tpu/ops/modify.py`:
-`_has_border`, `_greedy_select`, `_small_lookup`, `_replace_same_len`,
+Port of `custrings_tpu/ops/modify.py`: the literal replace
+(`_has_border`, `_greedy_select`, `_small_lookup`, `_replace_same_len`,
 `_replace_plan`, `_replace_count`, `_replace_write_route`,
-`_replace_grow_stream`, `_replace_full` and `replace_literal`.
+`_replace_grow_stream`, `_replace_full`, `replace_literal`), and
+`fillna_scalar`, `fillna_column`, `insert`, `slice_replace` (rows built
+from pieces by `build_column`) and `translate` (the charwise engine).
 
     same length   offsets do not change: one elementwise substitution off
                   the column's memoized tail plane (bytes left in the
@@ -21,9 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from ..column import BOUND_SYNC_THRESHOLD, StringColumn, cumsum0
+from ..column import BOUND_SYNC_THRESHOLD, StringColumn, build_column, cumsum0
 from ..config import bucket_bytes
-from . import layout, segments, shift_compact
+from . import charwise, layout, segments, shift_compact, substr
 from .find import _match_mask, _pat_array
 
 
@@ -231,3 +233,107 @@ def replace_literal(col: StringColumn, pat, repl, n: int = -1) -> StringColumn:
         bcap = bucket_bytes(nbytes + npicks * max(rl - m, 0) + 1)
     data, offs = _replace_full(col, p, r, m, rl, bordered, n, bcap)
     return StringColumn(data, offs, col.validity)
+
+
+def _piece_byte(b: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """b[k] of a short constant (k clamped into it), 0 when b is empty."""
+    if b.shape[0] == 0:
+        return torch.zeros_like(k, dtype=torch.uint8)
+    return b[k.clamp(0, b.shape[0] - 1).to(torch.int64)]
+
+
+def fillna_scalar(col: StringColumn, repl: str) -> StringColumn:
+    """Null rows become `repl` (modify.cu fillna:395)."""
+    rb = _pat_array(repl, col.device)
+    sizes = torch.where(col.validity, col.lengths(), rb.shape[0])
+    starts = col.offsets[:-1]
+
+    def produce(rows, k, valid, bcast):
+        src = layout.gather_bytes(col.data, bcast(starts) + k)
+        return torch.where(bcast(col.validity) == 1, src, _piece_byte(rb, k))
+
+    return build_column(sizes, torch.ones_like(col.validity), produce)
+
+
+def fillna_column(col: StringColumn, repl: StringColumn) -> StringColumn:
+    """Null rows take the same row of `repl` (modify.cu fillna:444)."""
+    use_repl = ~col.validity
+    sizes = torch.where(use_repl, repl.lengths(), col.lengths())
+    validity = torch.where(use_repl, repl.validity, col.validity)
+    starts, rstarts = col.offsets[:-1], repl.offsets[:-1]
+
+    def produce(rows, k, valid, bcast):
+        a = layout.gather_bytes(col.data, bcast(starts) + k)
+        b = layout.gather_bytes(repl.data, bcast(rstarts) + k)
+        return torch.where(bcast(use_repl) == 1, b, a)
+
+    return build_column(sizes, validity, produce)
+
+
+def insert(col: StringColumn, start: int, repl: str) -> StringColumn:
+    """`repl` inserted at char position `start` (-1: at the end)
+    (modify.cu insert:494)."""
+    return slice_replace(col, start, start, repl, insert_mode=True)
+
+
+def slice_replace(col: StringColumn, start, stop, repl: str | None,
+                  insert_mode: bool = False) -> StringColumn:
+    """Chars [start, stop) of every row replaced by `repl`; a stop < 0 or
+    None means the row's end (modify.cu slice_replace:35)."""
+    rb = _pat_array(repl or "", col.device)
+    rl = rb.shape[0]
+    n, dev = col.size, col.device
+    nch = layout.char_counts(col)
+    s = torch.full((n,), int(start if start is not None else 0), dtype=torch.int32, device=dev)
+    if insert_mode:
+        s = torch.where(s < 0, nch, torch.minimum(s, nch))
+        e = s
+    else:
+        e = torch.full((n,), -1 if stop is None else int(stop), dtype=torch.int32, device=dev)
+        e = torch.where(e < 0, nch, torch.minimum(e, nch))
+        s = torch.minimum(s.clamp(min=0), nch)
+        e = torch.maximum(e, s)
+    _, _, sb, eb = substr._char_window(col, s, e, raw=True)
+    head = sb - col.offsets[:-1]
+    sizes = head + rl + (col.offsets[1:] - eb)
+    starts = col.offsets[:-1]
+
+    def produce(rows, k, valid, bcast):
+        h = bcast(head)
+        head_b = layout.gather_bytes(col.data, bcast(starts) + k)
+        tail_b = layout.gather_bytes(col.data, bcast(eb) + (k - h - rl).clamp(min=0))
+        return torch.where(k < h, head_b, torch.where(k < h + rl, _piece_byte(rb, k - h), tail_b))
+
+    return build_column(sizes, col.validity, produce)
+
+
+def translate(col: StringColumn, table) -> StringColumn:
+    """Chars mapped through a codepoint table (modify.cu translate:302):
+    a dict {char or ord: char, ord or None} or (key, value) pairs; None
+    deletes the char, as in `str.translate`.  The kept chars of each row
+    are counted by one prefix count (K3)."""
+    if col.size == 0:
+        return col
+    items = table.items() if isinstance(table, dict) else table
+    cm = layout.char_map(col)
+    cps = layout.codepoints(col)
+    mapped = cps
+    for k, v in items:
+        src = ord(k) if isinstance(k, str) else int(k)
+        dst = -1 if v is None else (ord(v) if isinstance(v, str) else int(v))
+        mapped = torch.where(cps == src, dst, mapped)
+    ncap = cps.shape[0]
+    c = torch.arange(ncap, dtype=torch.int32, device=col.device)
+    kept = (mapped >= 0) & (c < cm.cs0[-1])
+    kpos0 = cumsum0(kept)
+    counts = segments.per_row_of_prefix(kpos0, cm.char_offsets)
+    # the k-th kept char of the column is input char in_for_out[k]
+    in_for_out = torch.zeros(ncap + 1, dtype=torch.int32, device=col.device)
+    in_for_out[torch.where(kept, kpos0[:-1], ncap).to(torch.int64)] = c
+    base_rows = kpos0[cm.char_offsets[:-1].to(torch.int64)]
+
+    def cp_fn(rows, oc, valid, *, cidx, bcast):
+        g = in_for_out[(bcast(base_rows) + oc).clamp(0, ncap - 1).to(torch.int64)]
+        return mapped[g.clamp(0, ncap - 1).to(torch.int64)]
+
+    return charwise.build_charwise(col, counts, cp_fn)

@@ -6,6 +6,7 @@
     python3 profile_slice.py --ops dictionary_encode,replace_grow
                                            # the per-op rows of those ops alone
     python3 profile_slice.py --ops text    # the per-op rows of the text ops
+    python3 profile_slice.py --ops clean   # the per-op rows of the clean ops
 
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
 "THE"), dictionary_encode, the growing and shrinking replace_literal
@@ -16,7 +17,11 @@ chip_smoke.make_corpus(), each text op of chip_smoke.py's text phase at
 the op level (the whitespace and right-to-left splits, partition,
 rpartition, and nvtext's ops) on chip_smoke.make_text_rows() of those
 rows (the n-grams on the tokens of their first 2^17, the Porter measure
-on their vocabulary), and for each matcher of the
+on their vocabulary), each op of chip_smoke.py's clean phase at the op
+level (strip, the case maps, translate, the slices, the paddings, wrap,
+the searches and compares, len and the predicates, cat, fillna, insert,
+slice_replace, order and sort, scatter, append) on
+chip_smoke.make_clean_rows() of those rows, and for each matcher of the
 matchers phase (contains_re of ERR, ISO and MONTH on the 2^20 log rows of
 chip_smoke.make_logs(), of BIG on their first 65,536, of ERR on the 2,048
 long rows): the wall time without the profiler, and under torch.profiler
@@ -42,9 +47,9 @@ that tree's package first on sys.path.  One JSON line each, after one
 naming the package's directory.
 
 `--ops a,b,...` runs the per-op rows of the named ops alone (names as in
-the op table in main(); `text` names every text op); they call only the
-package's entry points, so an earlier tree's package is profiled the
-same way.  The kernels' own
+the op table in main(); `text` names every text op, `clean` every clean
+op); they call only the package's entry points, so an earlier tree's
+package is profiled the same way.  The kernels' own
 times at the main path's calls are chip_smoke.py's kernel phase.
 """
 
@@ -118,7 +123,8 @@ def main() -> int:
         print(cs._nvidia_smi(), flush=True)
         return 0
     from custrings_tpu_torch import column
-    from custrings_tpu_torch.ops import compact, hash, layout, modify, split, unique
+    from custrings_tpu_torch.ops import (array, attrs, case, combine, compact, find, hash, layout, modify,
+                                         pad, split, strip, substr, unique)
     from custrings_tpu_torch.regex import ops as rx
     from custrings_tpu_torch.text import distance, ngram, token
 
@@ -172,11 +178,48 @@ def main() -> int:
         "edit_distance_pairwise": ("text", lambda c: distance.edit_distance_pairwise(c, made("text THE"))),
         "porter_stemmer_measure": ("vocabulary", lambda c: distance.porter_stemmer_measure(c)),
     }
+    def per_row(key):  # the find_from starts and the scatter indexes, on the card
+        if key not in cols:
+            starts, idx = cs._clean_inputs(len(corpora["clean"]))
+            cols[key] = torch.tensor(starts if key == "starts" else idx, device="cuda")
+        return cols[key]
+
+    clean_ops = {
+        "strip": ("clean", lambda c: strip.strip(c)),
+        **{kind: ("clean", lambda c, k=kind: getattr(case, k)(c))
+           for kind in ("lower", "upper", "title", "capitalize", "swapcase")},
+        "translate": ("clean", lambda c: modify.translate(c, cs.CLEAN_TRANSLATE)),
+        "slice(2, 40, 3)": ("clean", lambda c: substr.slice_chars(c, 2, 40, 3)),
+        "get(0)": ("clean", lambda c: substr.get_char(c, 0)),
+        "zfill(12)": ("clean", lambda c: pad.zfill(c, 12)),
+        "center(40, *)": ("clean", lambda c: pad.center(c, cs.CLEAN_WIDTH, "*")),
+        "wrap(40)": ("clean", lambda c: pad.wrap(c, cs.CLEAN_WIDTH)),
+        "startswith": ("clean", lambda c: find.startswith(c, "RT")),
+        "endswith": ("clean", lambda c: find.endswith(c, "!")),
+        "find_from": ("clean", lambda c: find.find_from(c, "the", per_row("starts"))),
+        "compare": ("clean", lambda c: find.compare(c, "m")),
+        "match_strings": ("clean", lambda c: find.match_strings(c, made("clean stripped"))),
+        "find_multiple": ("clean", lambda c: find.find_multiple(c, made("clean targets"))),
+        "len": ("clean", lambda c: attrs.len_chars(c)),
+        **{p: ("clean", lambda c, p=p: getattr(attrs, p)(c)) for p in cs.CLEAN_PREDICATES},
+        "cat": ("clean", lambda c: combine.cat(c, c, "|", "-")),
+        "fillna": ("clean", lambda c: modify.fillna_scalar(c, "-")),
+        "insert": ("clean", lambda c: modify.insert(c, 5, "_X_")),
+        "slice_replace": ("clean", lambda c: modify.slice_replace(c, 2, 6, "##")),
+        **{f"order{key}": ("clean", lambda c, key=key: array.order(c, *key)) for key in cs.CLEAN_SORTS},
+        "sort(2)": ("clean", lambda c: array.sort(c, 2)),
+        "scatter": ("clean", lambda c: array.scatter(c, made("clean head"), per_row("idx"))),
+        "scalar_scatter": ("clean", lambda c: array.scalar_scatter(c, made("X"), per_row("idx"))),
+        "remove_strings": ("clean", lambda c: array.remove_strings(c, per_row("idx"))),
+        "append": ("clean", lambda c: array.append([c, made("clean head")])),
+    }
     ops.update(text_ops)
+    ops.update(clean_ops)
     if matchers:
         ops = {k: v for k, v in ops.items() if k == "contains_re" or k.endswith("(K2b)")}
     if only is not None:
-        only = [k for name in only for k in (text_ops if name == "text" else [name])]
+        groups = {"text": text_ops, "clean": clean_ops}
+        only = [k for name in only for k in groups.get(name, [name])]
         unknown = set(only) - set(ops)
         if unknown:
             print(f"profile_slice: unknown ops {sorted(unknown)}; known: {sorted(ops)}", file=sys.stderr)
@@ -199,6 +242,14 @@ def main() -> int:
                                  for t in cs.ws_split(x, -1) if t],
             "vocabulary": sorted({t for x in text if x is not None for t in x.split(" ") if t}),
             "text THE": [None if x is None else x.replace("the", "THE") for x in text],
+        })
+
+    if "clean" in srcs:
+        clean = cs.make_clean_rows(strs)
+        _, idx = cs._clean_inputs(len(clean))
+        corpora.update({
+            "clean": clean, "clean stripped": [None if x is None else x.strip(" \n\t") for x in clean],
+            "clean targets": list(cs.CLEAN_TARGETS), "clean head": clean[: len(idx)], "X": ["X"],
         })
 
     def fresh(src="tweets"):
