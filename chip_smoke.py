@@ -110,25 +110,54 @@ Phases, each printing one JSON line:
                (captured): lower()'s charwise byte expansion, order()'s
                key words, compare()'s view; each against its plain
                version, exactly, with its own bound
-  9. launches — each path's kernel counters (reset just before the path,
+  9. convert — a seeded table of 2^20 rows (make_convert_rows: ints,
+               floats, hex, IPv4, two timestamp formats, booleans and the
+               tweets with 4,096 % edge rows, ~1% null and ~1% empty
+               each) written to a CSV file in a temporary directory and
+               read back column by column with nvstrings.from_csv (the hex
+               column with CSV_SORT_NAME); stoi, stol, htoi, stof, stod,
+               ip2int, to_booleans, timestamp2int (two formats and
+               units); itos, ltos, ftos, dtos, int2ip, from_booleans and
+               int2timestamp of their results; url_encode of the url
+               column, url_decode of its output and of the url column;
+               get_info of the int column; every row against Python
+               (int(), ipaddress, calendar and datetime, urllib.parse.quote,
+               the round trip) or oracles written to the JAX package's
+               semantics (the hex state machine, stod's formula in numpy,
+               within 2 ulp, _float_to_string, the byte-level url decode)
+     kernel_convert — K4e, K7 and K1 at the convert path's own calls
+               (captured): url_encode's byte expansion, url_decode's
+               compaction (with torch.masked_select's time), stod's view;
+               each against its plain version, exactly, with its own bound
+ 10. launches — each path's kernel counters (reset just before the path,
                read just after) are above zero for the kernels it runs;
                K3 sum's launches are also split by input size
 Then the kernels JSON line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line.  Any failure exits nonzero.
 
-make_corpus() builds the tweet-like corpus, make_logs() the log lines and
-make_text_rows() the text phase's rows from a seed with numpy; the CPU
-tests import them at a small size.
+make_corpus() builds the tweet-like corpus, make_logs() the log lines,
+make_text_rows() the text phase's rows and make_convert_rows() the
+convert phase's table from a seed with numpy; the CPU tests import them
+at a small size.
 """
 
 from __future__ import annotations
 
+import calendar
+import collections
+import datetime
+import ipaddress
 import json
+import math
+import os
 import re
 import statistics
+import string
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.parse
 
 import numpy as np
 
@@ -2189,6 +2218,522 @@ def _clean_kernel_shapes(torch, strs, device="cuda"):
             ("window_bytes", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170", [view(*k1.calls[0][1])])]
 
 
+# ---------------------------------------------------------------- convert
+
+CONVERT_COLUMNS = ("int", "float", "hex", "ip", "ts", "ts_ms", "bool", "url")
+#: from_csv's flags for each column.  The CSV dialect has one blank
+#: field, null or (CSV_NULL_IS_EMPTY, 8) empty, so each column comes back
+#: with ~2% of one of the two; the hex column comes back sorted by name
+#: (CSV_SORT_NAME, 2: array.sort on K1b's key words)
+CONVERT_FLAGS = {"int": 0, "float": 8, "hex": 2, "ip": 0, "ts": 0, "ts_ms": 8, "bool": 8, "url": 0}
+TS_MS_FORMAT = "%Y-%m-%d %H:%M:%S.%f %Z"
+TS_MS_OUT = "%Y-%m-%d %H:%M:%S.%f"
+CONVERT_EDGE_ROWS = 4096
+_INT_EDGES = ("9223372036854775807", "-9223372036854775808", "9223372036854775808", "-9223372036854775809",
+              "18446744073709551616", "+0", "-0", "0", "+", "-", "00000000000000000000123", "-000")
+_INT_SUFFIX = ("ab", "x", ".5", "e3", " 9", "-1", "+", "abc", "12ab")
+_INT_PREFIX = ("a", " ", "--", "+-", "x", ".", "-+")
+_FLOAT_SHORT = (".5", "-.02", "3.", "-0", "-0.0", "0.0", "+.5", "1.", "00012.50")
+_FLOAT_SPECIAL = ("nan", "NaN", "inf", "-inf", "Inf", "-Inf", "infinity", "+inf", "nan(0)", "-nan", "INF")
+_FLOAT_JUNK = ("1.2.3", "abc", "1e", "e5", "--1", "1e+", "12x", "-e5", "+.e3", "1e5x3", "0e400", "1e-400",
+               "1" + "0" * 30, "0." + "0" * 25 + "1", "12345678901234567890123", "9.99e308", "4.9e-324",
+               "2.2250738585072014e-308", "1e-310", "1.5e-45", "3.4e38", "1e2147483648", "1E+05", ".", "-", "e")
+_HEX_JUNK = ("zz12", "12g3", "-1f", " ff", "x1", "1x2", "0xg", "0x", "X", "0x0x1", "fffffffffffffffff", "-")
+_BOOL_WORDS = ("true", "TRUE", "False ", "yes", "1", "0", "Truex", "Tru", "T", " True")
+_TS_SUFFIX = ("UTC", "utc", "Utc", "uTC", "GMT", "EST", "UT")
+_URL_PIECES = ("%4", "%%41", "%zz", "%C3%A9", "%F0%9F%98%80", "%2", "%", "%%", "a%2Fb", "%25", "%4a%4A",
+               "%FF", "%C3", "100%", "%0", "%20%20", "%e6%97%a5", "x%", "%%%", "%7E", "%2g", " ", "é", "+")
+
+
+def _blank(rng, rows, p: float = 0.01):
+    """~p of the rows null and ~p empty, in place."""
+    k = rng.random(len(rows))
+    for i in np.nonzero(k < 2 * p)[0].tolist():
+        rows[i] = None if k[i] < p else ""
+    return rows
+
+
+def _int_rows(rng, n):
+    nd = rng.integers(1, 19, n)
+    mag = rng.integers(0, 10**18, n, dtype=np.int64) // np.power(10, 18 - nd).astype(np.int64)
+    rows = [("-" if s else "") + str(m) for s, m in zip((rng.random(n) < 0.4).tolist(), mag.tolist())]
+    kind, pick = rng.random(n), rng.integers(0, 1 << 30, n)
+    for i in np.nonzero(kind < 0.19)[0].tolist():
+        k, p, r = kind[i], int(pick[i]), rows[i]
+        if k < 0.05:
+            rows[i] = "+" + r.lstrip("-")
+        elif k < 0.10:
+            rows[i] = ("-" if r[0] == "-" else "") + "0" * (1 + p % 4) + r.lstrip("-")
+        elif k < 0.12:
+            rows[i] = _INT_EDGES[p % len(_INT_EDGES)]
+        elif k < 0.14:
+            rows[i] = ("-" if p & 1 else "") + str(10**18 + p) + str(p)[: 1 + p % 6]
+        elif k < 0.17:
+            rows[i] = r + _INT_SUFFIX[p % len(_INT_SUFFIX)]
+        else:
+            rows[i] = _INT_PREFIX[p % len(_INT_PREFIX)] + r
+    return rows
+
+
+def _float_rows(rng, n):
+    sign = np.where(rng.random(n) < 0.3, -1.0, 1.0)
+    with np.errstate(over="ignore"):
+        vals = (sign * (rng.random(n) * 9 + 1) * np.power(10.0, rng.integers(-320, 309, n))).tolist()
+    kind, pick = rng.random(n).tolist(), rng.integers(0, 1 << 30, n).tolist()
+    short = rng.normal(0, 1000, n)
+    rows = []
+    for i, v in enumerate(vals):
+        k, p = kind[i], pick[i]
+        if k < 0.40:
+            rows.append(f"{v:.17g}")
+        elif k < 0.65:
+            rows.append(f"{v:e}" if p & 1 else f"{v:E}")
+        elif k < 0.77:
+            rows.append(f"{short[i]:.{p % 5}f}")
+        elif k < 0.80:
+            rows.append(_FLOAT_SHORT[p % len(_FLOAT_SHORT)])
+        elif k < 0.88:
+            rows.append(str(p - (1 << 29)))
+        elif k < 0.93:
+            rows.append(_FLOAT_SPECIAL[p % len(_FLOAT_SPECIAL)])
+        else:
+            rows.append(_FLOAT_JUNK[p % len(_FLOAT_JUNK)])
+    return rows
+
+
+def _hex_rows(rng, n):
+    nd = rng.integers(1, 17, n).tolist()
+    vals = rng.integers(0, 1 << 63, n, dtype=np.int64).tolist()
+    kind, pick = rng.random(n), rng.integers(0, 1 << 30, n)
+    rows = []
+    for i in range(n):
+        k, p = kind[i], int(pick[i])
+        h = format(vals[i], "016x")[16 - nd[i]:]
+        pre = ("0x", "0X", "", "", "")[p % 5]
+        if k > 0.97:
+            rows.append(_HEX_JUNK[p % len(_HEX_JUNK)])
+        elif k > 0.95:
+            rows.append(pre + format(vals[i], "x") + format(p, "x"))  # past 16 digits: wraps
+        else:
+            rows.append(pre + (h.upper() if k < 0.40 else h))
+    return rows
+
+
+def _ts_strings(rng, n, unit: str):
+    lo = calendar.timegm((1900, 1, 1, 0, 0, 0))
+    hi = calendar.timegm((2101, 1, 1, 0, 0, 0))
+    k = 1000 if unit == "ms" else 1
+    t = rng.integers(lo * k, hi * k, n).astype(f"datetime64[{unit}]")
+    return np.datetime_as_string(t).tolist()
+
+
+def _cut_some(rng, rows, p: float):
+    """~p of the rows cut short at a random length (too short to parse)."""
+    k = rng.random(len(rows))
+    for i in np.nonzero(k < p)[0].tolist():
+        rows[i] = rows[i][: int(k[i] / p * (len(rows[i]) - 1))]
+    return rows
+
+
+def make_convert_rows(n: int, seed: int = 7, tweets=None):
+    """The conversion path's table: {column: n rows} (CONVERT_COLUMNS),
+    each with ~1% null and ~1% empty rows.  int: signed, with a leading +,
+    leading zeros, INT64_MIN/MAX, overflowing values and junk before or
+    after; float: %.17g and %e forms with exponents -320..308, short
+    decimals (.5, -.02), integers, nan/inf spellings and junk; hex: 1-16
+    digits, either case, with or without 0x/0X, some past 16 digits,
+    junk; ip: dotted quads; ts: DEFAULT_FORMAT over the years 1900-2100,
+    some cut short; ts_ms: TS_MS_FORMAT with UTC in any case, other zones
+    and cut rows; bool: True, False and other words; url: `tweets`
+    (by default make_corpus(n, seed=0)) with CONVERT_EDGE_ROWS of them (a quarter of a smaller table)
+    replaced by % edge rows (an escape cut at the row end, %%41, %zz,
+    multi-byte escapes, bytes that decode to invalid UTF-8)."""
+    rng = np.random.default_rng(seed)
+    table = {"int": _int_rows(rng, n), "float": _float_rows(rng, n), "hex": _hex_rows(rng, n),
+             "ip": [".".join(map(str, q)) for q in rng.integers(0, 256, (n, 4)).tolist()]}
+    sfx = rng.choice(len(_TS_SUFFIX), n, p=[0.5, 0.2, 0.1, 0.05, 0.08, 0.04, 0.03]).tolist()
+    table["ts"] = _cut_some(rng, [t + "Z" for t in _ts_strings(rng, n, "s")], 0.015)
+    table["ts_ms"] = _cut_some(rng, [t.replace("T", " ") + " " + _TS_SUFFIX[s]
+                                     for t, s in zip(_ts_strings(rng, n, "ms"), sfx)], 0.01)
+    words = rng.random(n).tolist()
+    pick = rng.integers(0, len(_BOOL_WORDS), n).tolist()
+    table["bool"] = ["True" if w < 0.45 else "False" if w < 0.85 else _BOOL_WORDS[p] for w, p in zip(words, pick)]
+    for name in CONVERT_COLUMNS[:-1]:
+        _blank(rng, table[name])
+    url = make_corpus(n, seed=0) if tweets is None else list(tweets)
+    for i in rng.choice(n, size=min(CONVERT_EDGE_ROWS, n // 4), replace=False).tolist():
+        url[i] = "".join(_URL_PIECES[j] for j in rng.integers(0, len(_URL_PIECES), rng.integers(1, 5)).tolist())
+    table["url"] = url
+    return table
+
+
+def write_csv(table, path: str) -> int:
+    """The table as a CSV file with a header line, in the reference's
+    dialect: a field holding a comma or a quote is quoted, its quotes
+    doubled (the reader keeps them doubled), a null or empty row is a
+    blank field.  Returns the file's bytes."""
+    def field(x):
+        if not x:
+            return ""
+        return '"' + x.replace('"', '""') + '"' if "," in x or '"' in x else x
+
+    cols = [[field(x) for x in table[name]] for name in CONVERT_COLUMNS]
+    with open(path, "w", encoding="utf-8", newline="") as f:
+        f.write(",".join(CONVERT_COLUMNS) + "\n")
+        f.writelines(",".join(row) + "\n" for row in zip(*cols))
+    return os.path.getsize(path)
+
+
+def read_back_py(table):
+    """{column: what from_csv must read}: a blank field is None or (with
+    CSV_NULL_IS_EMPTY) "", quotes come back doubled, the hex column
+    sorted as array.sort(stype 2) sorts (nulls first, then by bytes)."""
+    out = {}
+    for name in CONVERT_COLUMNS:
+        blank = "" if CONVERT_FLAGS[name] & 8 else None
+        rows = [blank if not x else x.replace('"', '""') for x in table[name]]
+        if CONVERT_FLAGS[name] & 2:
+            rows = [rows[i] for i in order_py(rows, 2, True, True)]
+        out[name] = rows
+    return out
+
+
+def _wrap(v: int, bits: int) -> int:
+    return (v + (1 << (bits - 1))) % (1 << bits) - (1 << (bits - 1))
+
+
+_INT_HEAD = re.compile(r"([+-]?)([0-9]*)")
+
+
+def stol_py(s: str) -> int:
+    """custr stol: a sign at the first byte, then the digits up to the
+    first non-digit, wrapping in int64."""
+    m = _INT_HEAD.match(s)
+    v = int(m[2] or "0")
+    return _wrap(-v if m[1] == "-" else v, 64)
+
+
+_HEX_WHOLE = re.compile(r"(0[xX])?([0-9a-fA-F]+)")
+
+
+def htoi_py(s: str) -> int:
+    """convert.cu htoi as the JAX package runs it: non-hex bytes before the
+    first hex digit and an x/X at byte 0 or 1 are skipped, then hex
+    digits up to the first other byte, wrapping in int64."""
+    m = _HEX_WHOLE.fullmatch(s)
+    if m:
+        return _wrap(int(m[2], 16), 64)
+    val, done, started = 0, False, False
+    for j, c in enumerate(s.encode()):
+        hv = int(chr(c), 16) if chr(c) in string.hexdigits else -1
+        skip = c in (0x78, 0x58) and j <= 1
+        ok = hv >= 0 and not done
+        if ok:
+            val = _wrap(val * 16 + hv, 64)
+        done = done or (hv < 0 and not skip and started)
+        started = started or ok or skip
+    return val
+
+
+_FLOAT_HEAD = re.compile(r"([+-]?)([0-9.]*)([eE](.*))?", re.S)
+_MAXM = 0x0FFFFFFFFFFFFF
+
+
+def stod_py(strs):
+    """float64[rows]: custr::stod as the JAX package computes it, in numpy
+    (0 for null rows): a sign at the first byte, a mantissa of digits and
+    dots whose digits stop accumulating above 0x0FFFFFFFFFFFFF (a digit
+    dropped before the first dot adds 1 to the exponent, one kept after
+    it takes 1 away), then after an e/E an optional sign and every later
+    digit of the row (int32 arithmetic), and sign * digits * 10.0**exp;
+    rows starting nan/NaN, inf/Inf, -inf/-Inf are the specials."""
+    n = len(strs)
+    sign, digits, exp = np.ones(n), np.zeros(n), np.zeros(n)
+    special = {}
+    for i, s in enumerate(strs):
+        if not s:
+            continue
+        if s[:3] in ("nan", "NaN"):
+            special[i] = math.nan
+        elif s[:3] in ("inf", "Inf"):
+            special[i] = math.inf
+        elif s[:4] in ("-inf", "-Inf"):
+            special[i] = -math.inf
+        m = _FLOAT_HEAD.match(s)
+        if m[1] == "-":
+            sign[i] = -1.0
+        mant = m[2]
+        ds = mant.replace(".", "")
+        if len(ds) <= 15:  # below _MAXM whatever the digits
+            dot = mant.find(".")
+            d, off = int(ds or "0"), (dot - len(ds) if dot >= 0 else 0)
+        else:
+            d, off, dec = 0, 0, False
+            for ch in mant:
+                if ch == ".":
+                    dec = True
+                elif d * 10 + int(ch) <= _MAXM:
+                    d, off = d * 10 + int(ch), off - dec
+                else:
+                    off += not dec
+        e10 = 0
+        if m[3] is not None:
+            rest = m[4]
+            e10 = _wrap(int("".join(ch for ch in rest if "0" <= ch <= "9") or "0"), 32)
+            e10 = _wrap(-e10 if rest[:1] == "-" else e10, 32)
+        digits[i] = d
+        exp[i] = _wrap(off + e10, 32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        val = sign * digits * np.power(10.0, exp)
+    for i, v in special.items():
+        val[i] = v
+    return val
+
+
+def _ulps(got, want):
+    """Per row, the float gap in units in the last place; NaNs, infinities
+    and signs must agree exactly (else the gap is 2^62)."""
+    a, b = np.asarray(got), np.asarray(want)
+    bits = np.int64 if a.dtype == np.float64 else np.int32
+    gap = np.abs(a.view(bits).astype(np.int64) - b.view(bits).astype(np.int64))
+    gap = np.where(np.isnan(a) & np.isnan(b), 0, gap)
+    same = (np.isnan(a) == np.isnan(b)) & (np.isinf(a) == np.isinf(b)) & (np.signbit(a) == np.signbit(b))
+    return np.where(same, gap, 1 << 62)
+
+
+def _parts(vals, dtype):
+    """A facade list (None for null rows) as (values, null mask), the
+    formatters' `values` and `nulls`."""
+    return (np.asarray([0 if v is None else v for v in vals], dtype),
+            np.asarray([v is None for v in vals], np.bool_))
+
+
+_EPOCH = datetime.datetime(1970, 1, 1)
+
+
+def ts_parse_py(s, ms: bool) -> int:
+    """A DEFAULT_FORMAT row in seconds, or a TS_MS_FORMAT row in
+    milliseconds whose zone is UTC in any case, by Python's calendar; 0
+    for a row too short or in another zone."""
+    if not s or len(s) < (27 if ms else 19):
+        return 0
+    t = calendar.timegm((int(s[0:4]), int(s[5:7]), int(s[8:10]), int(s[11:13]), int(s[14:16]), int(s[17:19])))
+    if not ms:
+        return t
+    return t * 1000 + int(s[20:23]) if s[24:27].upper() == "UTC" else 0
+
+
+def ts_format_py(v: int, ms: bool) -> str:
+    """v seconds (DEFAULT_FORMAT) or milliseconds (TS_MS_OUT) after the
+    epoch, by Python's datetime."""
+    d = _EPOCH + (datetime.timedelta(milliseconds=v) if ms else datetime.timedelta(seconds=v))
+    head = f"{d.year:04d}-{d.month:02d}-{d.day:02d}"
+    if ms:
+        return f"{head} {d.hour:02d}:{d.minute:02d}:{d.second:02d}.{d.microsecond // 1000:03d}"
+    return f"{head}T{d.hour:02d}:{d.minute:02d}:{d.second:02d}Z"
+
+
+def url_decode_py(s: str) -> bytes:
+    """url_decode as the JAX package runs it, on the row's UTF-8 bytes: a
+    '%' with two more bytes in the row starts an escape, a non-hex digit
+    counting as 0 (so "%zz" is 0x00); the two bytes after it are consumed
+    whatever they are."""
+    b = s.encode()
+    if b"%" not in b:
+        return b
+    out, j = bytearray(), 0
+    while j < len(b):
+        if b[j] == 0x25 and j + 2 < len(b):
+            hv = [int(chr(c), 16) if chr(c) in string.hexdigits else 0 for c in b[j + 1: j + 3]]
+            out.append(hv[0] * 16 + hv[1])
+            j += 3
+        else:
+            out.append(b[j])
+            j += 1
+    return bytes(out)
+
+
+def row_bytes(buffers, n: int):
+    """nvstrings.to_offsets()'s (bytes, offsets, null bitmask) as each
+    row's bytes (None for null rows)."""
+    data, offs, nulls = buffers
+    valid = np.unpackbits(nulls, bitorder="little")[:n].astype(bool)
+    buf = data.tobytes()
+    return [buf[a:b] if v else None for a, b, v in zip(offs[:-1].tolist(), offs[1:].tolist(), valid.tolist())]
+
+
+def stats_py(strs):
+    """get_info's dict from Python for a column of ASCII rows (where the
+    flag table agrees with str's predicates), without device_memory."""
+    vl = np.asarray([len(s.encode()) for s in strs if s is not None], np.int32)
+    chars = collections.Counter(ch for s in strs if s for ch in s)
+
+    def count(pred):
+        return sum(c for ch, c in chars.items() if pred(ch))
+
+    return {
+        "total_strings": len(strs), "null_strings": sum(s is None for s in strs),
+        "empty_strings": sum(s == "" for s in strs), "unique_strings": len(set(strs)),
+        "total_bytes": int(vl.sum()), "total_chars": sum(chars.values()),
+        "avg_bytes": float(vl.mean()) if len(vl) else 0.0, "max_bytes": int(vl.max()) if len(vl) else 0,
+        "min_bytes": int(vl.min()) if len(vl) else 0,
+        "pct95_bytes": float(np.percentile(vl, 95)) if len(vl) else 0.0,
+        "whitespace_count": count(str.isspace), "digits_count": count(str.isdigit),
+        "alpha_count": count(str.isalpha), "uppercase_count": count(str.isupper),
+        "lowercase_count": count(str.islower), "char_histogram": {ord(ch): c for ch, c in chars.items()},
+    }
+
+
+def _run_convert(torch, path, device="cuda"):
+    """The conversion path through the facade on the CSV file at `path`:
+    from_csv of every column, the parsers, the formatters on the parsed
+    values, url_encode, url_decode of its output and of the url column,
+    get_info of the int column.  Returns (host results, per-op seconds,
+    per-op peak device memory); a column made by an op is read back at
+    once.  The CPU tests run it with device="cpu"."""
+    from custrings_tpu_torch import nvstrings
+
+    times, peaks, out = {}, {}, {}
+    step = _stepper(torch, times, peaks, cuda=device == "cuda")
+    c = {}
+    for k, name in enumerate(CONVERT_COLUMNS):
+        c[name] = step(f"from_csv({name})",
+                       lambda k=k, name=name: nvstrings.from_csv(path, k, flags=CONVERT_FLAGS[name], device=device))
+        out[f"from_csv({name})"] = c[name].to_host()
+    for name, col in (("stoi", "int"), ("stol", "int"), ("htoi", "hex"), ("stof", "float"), ("stod", "float"),
+                      ("ip2int", "ip"), ("to_booleans", "bool"), ("timestamp2int", "ts")):
+        out[name] = step(name, getattr(c[col], name))
+    out["timestamp2int(ms)"] = step("timestamp2int(ms)", lambda: c["ts_ms"].timestamp2int(TS_MS_FORMAT, "ms"))
+
+    def host(name, fn):
+        out[name] = step(name, fn).to_host()
+
+    for name, fn, src, dtype in (("itos", nvstrings.itos, "stoi", np.int32),
+                                 ("ltos", nvstrings.ltos, "stol", np.int64),
+                                 ("ftos", nvstrings.ftos, "stof", np.float32),
+                                 ("dtos", nvstrings.dtos, "stod", np.float64),
+                                 ("int2ip", nvstrings.int2ip, "ip2int", np.int64),
+                                 ("from_booleans", nvstrings.from_booleans, "to_booleans", np.bool_)):
+        vals, nulls = _parts(out[src], dtype)
+        host(name, lambda fn=fn, vals=vals, nulls=nulls: fn(vals, nulls=nulls, device=device))
+    for name, src, units, fmt in (("int2timestamp", "ts", "s", None), ("int2timestamp(ms)", "ts_ms", "ms", TS_MS_OUT)):
+        nulls = np.asarray([x is None for x in out[f"from_csv({src})"]], np.bool_)
+        vals = out[name.replace("int2timestamp", "timestamp2int")]
+        host(name, lambda vals=vals, units=units, fmt=fmt, nulls=nulls:
+             nvstrings.int2timestamp(vals, units, fmt, nulls=nulls, device=device))
+    enc = step("url_encode", c["url"].url_encode)
+    out["url_encode"] = enc.to_host()
+    host("url_decode(url_encode)", enc.url_decode)
+    del enc
+    raw = step("url_decode", c["url"].url_decode)
+    out["url_decode"] = row_bytes(raw.to_offsets(), raw.size())
+    del raw
+    out["get_info(int)"] = step("get_info(int)", c["int"].get_info)
+    out["memsize(int)"] = c["int"].memsize()
+    return out, times, peaks
+
+
+def _check_convert(table, res):
+    """(mismatches of each convert op against its oracle, every row; the
+    largest stod and stof gaps in ulps)."""
+    from custrings_tpu_torch.ops.convert import _float_to_string
+
+    want = read_back_py(table)
+    bad = {f"from_csv({k})": _mismatches(res[f"from_csv({k})"], v) for k, v in want.items()}
+
+    def each(name, fn):
+        return [None if x is None else fn(x) for x in want[name]]
+
+    def formatted(name, fn):
+        return [None if v is None else fn(v) for v in res[name]]
+
+    want_stol = each("int", stol_py)
+    bad["stol"] = _mismatches(res["stol"], want_stol)
+    bad["stoi"] = _mismatches(res["stoi"], [None if v is None else _wrap(v, 32) for v in want_stol])
+    bad["htoi"] = _mismatches(res["htoi"], each("hex", htoi_py))
+    bad["ip2int"] = _mismatches(res["ip2int"], each("ip", lambda x: int(ipaddress.IPv4Address(x))))
+    bad["to_booleans"] = _mismatches(res["to_booleans"], each("bool", lambda x: x == "True"))
+    bad["timestamp2int"] = _mismatches(res["timestamp2int"], [ts_parse_py(x, False) for x in want["ts"]])
+    bad["timestamp2int(ms)"] = _mismatches(res["timestamp2int(ms)"], [ts_parse_py(x, True) for x in want["ts_ms"]])
+    # stod and stof against the numpy formula: within 2 ulp (CUDA
+    # documents its double pow to 2 ulp), NaN, the infinities and the
+    # sign exact
+    null = np.asarray([x is None for x in want["float"]])
+    want_d = stod_py(want["float"])
+    gaps = {}
+    for name, dtype in (("stod", np.float64), ("stof", np.float32)):
+        got, nulls = _parts(res[name], dtype)
+        with np.errstate(over="ignore"):
+            g = np.where(null, 0, _ulps(got, want_d.astype(dtype)))
+        gaps[name] = int(g.max()) if len(g) else 0
+        bad[name] = int((g > 2).sum()) + int((nulls != null).sum())
+    bad["itos"] = _mismatches(res["itos"], formatted("stoi", str))
+    bad["ltos"] = _mismatches(res["ltos"], formatted("stol", str))
+    bad["ftos"] = _mismatches(res["ftos"], formatted("stof", _float_to_string))
+    bad["dtos"] = _mismatches(res["dtos"], formatted("stod", _float_to_string))
+    bad["int2ip"] = _mismatches(res["int2ip"], formatted("ip2int", lambda v: str(ipaddress.IPv4Address(v))))
+    bad["from_booleans"] = _mismatches(res["from_booleans"], formatted("to_booleans", str))
+    for name, src, ms in (("int2timestamp", "ts", False), ("int2timestamp(ms)", "ts_ms", True)):
+        parsed = res[name.replace("int2timestamp", "timestamp2int")]
+        bad[name] = _mismatches(res[name], [None if x is None else ts_format_py(v, ms)
+                                            for x, v in zip(want[src], parsed)])
+    url = want["url"]
+    bad["url_encode"] = _mismatches(res["url_encode"], [None if x is None else urllib.parse.quote(x, safe="")
+                                                        for x in url])
+    bad["url_decode(url_encode)"] = _mismatches(res["url_decode(url_encode)"], url)
+    bad["url_decode"] = _mismatches(res["url_decode"], [None if x is None else url_decode_py(x) for x in url])
+    info = dict(res["get_info(int)"])
+    bad["get_info(int)"] = int(info.pop("device_memory") != res["memsize(int)"]) + int(info != stats_py(want["int"]))
+    return bad, gaps
+
+
+def _convert_kernel_shapes(torch, url_strs, float_strs, device="cuda"):
+    """K4e, K7 and K1 at the conversion path's own calls, captured by
+    wrapping the names their callers look up, each with its own bound:
+    url_encode's expansion of the url rows (each byte to its first output
+    slot, with placed; K4e), url_decode's compaction of the encoded rows
+    (K7, with torch.masked_select's time) and stod's padded view (K1).
+    Returns [(name, source, replaces, shapes)]; the CPU tests run it with
+    device="cpu"."""
+    from custrings_tpu_torch import column
+    from custrings_tpu_torch.ops import compact, convert, layout, route, shift_compact, urlencode, window
+
+    url = column.from_host_strings(url_strs, device)
+    with _Calls((shift_compact, "expand_to")) as k4e:
+        enc = urlencode.url_encode(url)
+    with _Calls((compact, "compact_bytes")) as k7:
+        urlencode.url_decode(enc)
+    with _Calls((layout, "ragged_gather")) as k1:
+        convert.stod(column.from_host_strings(float_strs, device))
+    if len(k4e.calls) != 1 or len(k7.calls) != 1 or len(k1.calls) != 1:
+        raise AssertionError(f"convert path calls not captured: K4e {len(k4e.calls)}, K7 {len(k7.calls)}, "
+                             f"K1 {len(k1.calls)} (want one each)")
+    del url, enc
+
+    def expand(live, dist, planes, out_cap, want):
+        return (f"u8[{live.shape[0]}] -> [{out_cap}] with placed, url_encode's bytes",
+                lambda: _expanded(route.expand_stream(live, dist, planes, out_cap, want)),
+                lambda: _expanded(route._expand_plain(live.bool(), dist.to(torch.int32), planes, out_cap, want)),
+                {"bound": _expand_bound(live, planes, out_cap, want)})
+
+    def compacted(data, keep, out_cap):
+        return (f"u8[{data.shape[0]}] -> u8[{out_cap}] url_decode's write",
+                lambda: compact.compact_bytes(data, keep, out_cap),
+                lambda: compact._compact_plain(data, keep.bool(), out_cap),
+                {"bound": _compact_bound(torch, keep, out_cap), "library": lambda: torch.masked_select(data, keep)})
+
+    def view(data, st, w, lens):
+        return (f"u8[{st.shape[0]},{w}] stod's view, masked at the lengths",
+                lambda: window.ragged_gather(data, st, w, lens),
+                lambda: window._gather_plain(data, st, w, lens),
+                {"bound": _window_bound(lens, w, 1)})
+
+    return [("route_expand", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:448", [expand(*k4e.calls[0][1])]),
+            ("compact_bytes", "csrc/compact.cu", "custrings_tpu/ops/pallas_compact.py:184",
+             [compacted(*k7.calls[0][1])]),
+            ("window_bytes", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170", [view(*k1.calls[0][1])])]
+
+
 def _driven(torch, kernels, run, strs):
     """Run one path with every launch counter set to 0 just before it and
     read just after; returns (run's result, the counters)."""
@@ -2208,6 +2753,7 @@ HASH_KERNELS = ("hash",)
 COMPACT_KERNELS = ("compact_bytes",)
 TEXT_KERNELS = ("scan_sum", "route_compact", "window_bytes", "window_words")
 CLEAN_KERNELS = ("scan_sum", "route_compact", "route_expand", "window_bytes", "window_words")
+CONVERT_KERNELS = ("scan_sum", "scan_max", "window_bytes", "window_words", "route_expand", "compact_bytes")
 
 
 def main() -> int:
@@ -2391,15 +2937,46 @@ def main() -> int:
         by_name[t["name"]]["max_abs_err"] = max(by_name[t["name"]]["max_abs_err"], t["max_abs_err"])
     torch.cuda.empty_cache()
 
+    # the conversion path: a CSV table of numbers, addresses, booleans,
+    # timestamps and URLs read back with from_csv, parsed and formatted
+    t_conv = time.perf_counter()
+    table = make_convert_rows(ROWS, seed=7, tweets=strs)
+    with tempfile.TemporaryDirectory() as tmp:
+        head = os.path.join(tmp, "head.csv")
+        write_csv({k: v[:4096] for k, v in table.items()}, head)
+        _run_convert(torch, head)  # first use
+        path = os.path.join(tmp, "convert.csv")
+        csv_bytes = write_csv(table, path)
+        (vres, vtimes, vpeaks), convert_launches = _driven(torch, kernels, _run_convert, path)
+    t_check = time.perf_counter()
+    vbad, gaps = _check_convert(table, vres)
+    _emit({"phase": "convert", "rows": ROWS, "csv_bytes": csv_bytes, "url_edge_rows": CONVERT_EDGE_ROWS,
+           "ms": {k: v * 1e3 for k, v in vtimes.items()}, "max_memory_allocated": max(vpeaks.values()),
+           "max_memory_allocated_by_op": vpeaks, "stod_max_ulps": gaps["stod"], "stof_max_ulps": gaps["stof"],
+           "oracle_seconds": time.perf_counter() - t_check, "phase_seconds": time.perf_counter() - t_conv,
+           "script_seconds_before_phase": t_conv - t_main, "mismatches": vbad})
+    if any(vbad.values()):
+        raise AssertionError(f"convert ops disagree with their oracles: {vbad}")
+    url_strs, float_strs = vres["from_csv(url)"], vres["from_csv(float)"]
+    del vres, table
+    torch.cuda.empty_cache()
+    convert_cases = [(name, src, rep, shapes, shapes[0][3]["bound"], None)
+                     for name, src, rep, shapes in _convert_kernel_shapes(torch, url_strs, float_strs)]
+    for t in _measure(torch, convert_cases, slow=("route_expand",), phase="kernel_convert"):
+        by_name[t["name"]]["shapes"] += t["shapes"]
+        by_name[t["name"]]["max_abs_err"] = max(by_name[t["name"]]["max_abs_err"], t["max_abs_err"])
+    del url_strs, float_strs
+    torch.cuda.empty_cache()
+
     paths = {"slice": slice_launches, "spans": span_launches, "matchers": matcher_launches,
              "hash": hash_launches, "compact": compact_launches, "text": text_launches,
-             "clean": clean_launches}
+             "clean": clean_launches, "convert": convert_launches}
     _emit({"phase": "launches", **paths})
     missing = []
     for path_name, need in (("slice", SLICE_KERNELS), ("spans", SPAN_KERNELS),
                             ("matchers", MATCHER_KERNELS), ("hash", HASH_KERNELS),
                             ("compact", COMPACT_KERNELS), ("text", TEXT_KERNELS),
-                            ("clean", CLEAN_KERNELS)):
+                            ("clean", CLEAN_KERNELS), ("convert", CONVERT_KERNELS)):
         missing += [f"{path_name}: {k}" for k in need if paths[path_name][k] <= 0]
     if missing:
         raise AssertionError(f"kernels their path never launched: {missing}")

@@ -3,7 +3,7 @@
 Port of `from_strings` and the `keys` / `values` / `keys_size` / `size`
 accessors of `custrings_tpu/nvcategory.py`, with `category.from_strings`
 folded in: a category is the sorted unique keys plus each row's key rank.
-The keyset algebra (add/remove/set/merge) is ROADMAP queue 1, item 11.
+The keyset algebra (add/remove/set/merge) is ROADMAP queue 1, item 2.
 """
 
 from __future__ import annotations

@@ -1,19 +1,21 @@
 """nvstrings facade over the port's ops.
 
-Port of the entry points of `custrings_tpu/nvstrings.py` that the ported
-ops serve: construction and export (`to_device`, `to_host`, `size`), the
-row attributes and predicates (`len`, `byte_count`, `null_count`, the
-`is*`), search (`contains`, `match`, `count`, `find`, `rfind`,
-`find_from`, `find_multiple`, `index`, `rindex`, `compare`,
-`match_strings`, `startswith`, `endswith`, `findall`, `findall_record`),
-`hash`, rewrites (`replace`, `translate`, the case maps, `strip` and its
-sides, `slice`, `slice_from`, `get`, `slice_replace`, `insert`,
-`fillna`, `repeat`, the paddings, `zfill`, `wrap`), joins (`join`,
-`cat`), splits (`split_record`, `split`, `rsplit_record`, `rsplit`,
-`partition`, `rpartition`) and row moves (`sort`, `order`, `sublist`,
-`gather`, `scatter`, `scalar_scatter`, `remove_strings`, `add_strings`).
-Return shapes are the JAX facade's, with None for a null row's value.
-The rest of its 92 methods follow the ROADMAP's queue 1.
+Port of `custrings_tpu/nvstrings.py`: every method of the JAX facade but
+the four regex methods that wait for the span engine with groups
+(`extract`, `extract_record`, `replace_multi`, `replace_with_backrefs`),
+and all 14 module functions.  Construction and export (`to_device`,
+`to_host`, `to_offsets`, `get_ipc_data`, `__getitem__`, `__iter__`), row
+attributes and predicates, search, `hash`, the number, address, boolean
+and timestamp parsers (`stoi`, `stol`, `stof`, `stod`, `htoi`, `ip2int`,
+`to_booleans`, `timestamp2int`) and their formatters (`itos`, `ltos`,
+`ftos`, `dtos`, `int2ip`, `from_booleans`, `int2timestamp`), rewrites
+(the case maps, strips, slices, paddings, `url_encode`, `url_decode`,
+...), joins, splits, row moves, `from_csv` and `get_info`.  Return
+shapes are the JAX facade's, with None for a null row's value; there are
+no `devptr` / `bdevmem` arguments (results are Python lists, and raw
+device pointers are not part of the port's surface).  A function that
+makes a column from host data takes `device`, "cuda" by default, and
+raises where that device is missing.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from .ops import array as _array
 from .ops import attrs as _attrs
 from .ops import case as _case
 from .ops import combine as _combine
+from .ops import convert as _convert
+from .ops import datetime_k as _datetime
 from .ops import find as _find
 from .ops import hash as _hash
 from .ops import modify as _modify
@@ -35,8 +39,11 @@ from .ops import pad as _pad
 from .ops import split as _split
 from .ops import strip as _strip
 from .ops import substr as _substr
+from .ops import urlencode as _url
 from .ops.substr import _span_column
 from .regex import ops as _rx
+from .utils import csv as _csv
+from .utils import stats as _stats
 
 
 class nvstrings:
@@ -56,6 +63,74 @@ class nvstrings:
 
     def size(self):
         return self._col.size
+
+    def __str__(self):
+        return str(self.to_host())
+
+    def __iter__(self):
+        return iter(self.to_host())
+
+    def __getitem__(self, key):
+        """The rows at an index, a slice or a list of indexes (or of
+        bools), as an nvstrings."""
+        if isinstance(key, (int, np.integer)):
+            return self.gather([int(key)])
+        if isinstance(key, slice):
+            return self.gather(list(range(*key.indices(self.size()))))
+        if isinstance(key, (list, np.ndarray)):
+            return self.gather(list(key))
+        raise TypeError("key must be integer, slice, or list of integers")
+
+    def to_offsets(self, sbuf=None, obuf=None, nbuf=None):
+        """(bytes, int32 offsets, Arrow null bitmask) on the host; numpy
+        `sbuf` / `obuf` / `nbuf` arrays are filled as well."""
+        data, offsets, nulls = _col.to_offsets_np(self._col)
+        for buf, arr, dtype in ((sbuf, data, np.uint8), (obuf, offsets, np.int32), (nbuf, nulls, np.uint8)):
+            if isinstance(buf, np.ndarray):
+                buf.view(dtype)[: len(arr)] = arr
+        return data, offsets, nulls
+
+    def memsize(self):
+        """Bytes held on the device: the byte buffer at its capacity, the
+        offsets and the validity mask."""
+        return sum(t.numel() * t.element_size() for t in (self._col.data, self._col.offsets, self._col.validity))
+
+    def device_memory(self):
+        return self.memsize()
+
+    def copy(self):
+        return nvstrings(self._col)
+
+    def get_nulls(self, emptyisnull=False):
+        """Indexes of the null rows (and of the empty ones with
+        `emptyisnull`)."""
+        nulls = ~self._col.validity
+        if emptyisnull:
+            nulls = nulls | (self._col.lengths() == 0)
+        return torch.nonzero(nulls).flatten().cpu().tolist()
+
+    def set_null_bitmask(self, nbuf):
+        """Replace the validity by an Arrow bitmask (bit set = valid); the
+        rows keep their bytes."""
+        bits = np.unpackbits(np.asarray(nbuf).view(np.uint8).ravel(), bitorder="little")[: self.size()]
+        validity = torch.from_numpy(bits.astype(np.bool_)).to(self._col.device)
+        self._col = _col.StringColumn(self._col.data, self._col.offsets, validity)
+        return self
+
+    def get_cpointer(self):
+        """0: there is no host pointer to a device column."""
+        return 0
+
+    def get_ipc_data(self):
+        """(bytes, offsets, null bitmask, count) as host buffers, from which
+        any process rebuilds the column with create_from_ipc (in place of
+        the reference's CUDA IPC handles)."""
+        data, offsets, nulls = _col.to_offsets_np(self._col)
+        return data.tobytes(), offsets.tobytes(), nulls.tobytes(), self.size()
+
+    def get_info(self):
+        """The column's statistics (utils.stats.compute_statistics)."""
+        return _stats.compute_statistics(self._col)
 
     def _other(self, strs):
         """The column of an nvstrings, or of a list of str / None on this
@@ -179,6 +254,38 @@ class nvstrings:
         (None for null rows)."""
         return self._masked(_hash.hash_mm3(self._col))
 
+    def stoi(self):
+        """Per row: its leading integer, as int32 (None for null rows)."""
+        return self._masked(_convert.stoi(self._col))
+
+    def stol(self):
+        return self._masked(_convert.stol(self._col))
+
+    def stof(self):
+        """Per row: its leading float, as float32 (None for null rows)."""
+        return self._masked(_convert.stof(self._col))
+
+    def stod(self):
+        return self._masked(_convert.stod(self._col))
+
+    def htoi(self):
+        """Per row: its hex digits' value (None for null rows)."""
+        return self._masked(_convert.htoi(self._col))
+
+    def ip2int(self):
+        """Per row: its dotted-quad IPv4 address as an int (None for null
+        rows)."""
+        return self._masked(_convert.ip2int(self._col))
+
+    def to_booleans(self, true="True"):
+        """Per row: equal to `true` (None for null rows)."""
+        return self._masked(_convert.to_booleans(self._col, true))
+
+    def timestamp2int(self, format=None, units="s"):
+        """Per row: its timestamp in `units` since the epoch, parsed by
+        `format` (0 for null rows and rows that do not parse)."""
+        return _datetime.timestamp2int(self._col, format, units).cpu().tolist()
+
     def _masked(self, res):
         vals = self._col.validity.cpu().tolist()
         return [b if v else None for b, v in zip(res.cpu().tolist(), vals)]
@@ -297,6 +404,14 @@ class nvstrings:
         None deletes the char."""
         return nvstrings(_modify.translate(self._col, table))
 
+    def url_encode(self):
+        """Every byte outside [0-9A-Za-z._~-] as %XX."""
+        return nvstrings(_url.url_encode(self._col))
+
+    def url_decode(self):
+        """Every %XX escape as its byte."""
+        return nvstrings(_url.url_decode(self._col))
+
     # ---- row moves ----
 
     def sort(self, stype=2, asc=True, nullfirst=True):
@@ -414,3 +529,77 @@ def to_device(strs, device="cuda"):
     """nvstrings from a list of Python str / None on `device`; raises
     where that device is missing."""
     return nvstrings(_col.from_host_strings(strs, device))
+
+
+def from_strings(*args):
+    """One nvstrings of the rows of the given ones (or lists of them), in
+    turn."""
+    cols = []
+    for a in args:
+        if isinstance(a, list):
+            cols.extend(x._col for x in a)
+        else:
+            cols.append(a._col)
+    return nvstrings(_array.append(cols))
+
+
+def from_offsets(sbuf, obuf, scount, nbuf=None, ncount=0, device="cuda"):
+    """nvstrings from Arrow host buffers: bytes, scount + 1 int32 offsets
+    and an optional null bitmask (bit set = valid)."""
+    return nvstrings(_col.from_offsets_np(sbuf, obuf, scount, nbuf, device=device))
+
+
+def create_from_ipc(ipc_data, device="cuda"):
+    """nvstrings from get_ipc_data()'s buffers."""
+    data_b, offs_b, nulls_b, count = ipc_data
+    return from_offsets(np.frombuffer(data_b, np.uint8), np.frombuffer(offs_b, np.int32), count,
+                        np.frombuffer(nulls_b, np.uint8), device=device)
+
+
+def from_csv(csv, column, lines=0, flags=0, device="cuda"):
+    """Field `column` of a CSV file's lines after its header
+    (utils.csv.read_column; `flags` as its CSV_* constants)."""
+    return nvstrings(_csv.read_column(csv, column, lines, flags, device))
+
+
+def itos(values, count=0, nulls=None, device="cuda"):
+    """Host int32 values as decimal strings; `nulls` a bool array of the
+    null rows or an Arrow bitmask."""
+    return nvstrings(_convert.itos(np.asarray(values, np.int32), nulls, device))
+
+
+def ltos(values, count=0, nulls=None, device="cuda"):
+    return nvstrings(_convert.itos(np.asarray(values, np.int64), nulls, device))
+
+
+def ftos(values, count=0, nulls=None, device="cuda"):
+    """Host float32 values as strings of 10 significant digits (an
+    exponent past 1e9 and below 1e-4)."""
+    return nvstrings(_convert.ftos(np.asarray(values, np.float32), nulls, device))
+
+
+def dtos(values, count=0, nulls=None, device="cuda"):
+    return nvstrings(_convert.ftos(np.asarray(values, np.float64), nulls, device))
+
+
+def int2ip(values, count=0, nulls=None, device="cuda"):
+    """Host uint32 values (None as 0) as dotted-quad IPv4 addresses."""
+    vals = [0 if v is None else int(v) for v in values]
+    return nvstrings(_convert.int2ip(np.asarray(vals, np.uint32), nulls, device))
+
+
+def from_booleans(values, true="True", false="False", nulls=None, device="cuda"):
+    return nvstrings(_convert.from_booleans(values, true, false, nulls, device))
+
+
+def int2timestamp(values, units="s", format=None, nulls=None, device="cuda"):
+    """Host int64 epoch values in `units` as timestamps in `format`."""
+    return nvstrings(_datetime.int2timestamp(np.asarray(values, np.int64), units, format, nulls, device))
+
+
+def free(dstrs):
+    """Nothing to do: a column's tensors are freed with it."""
+
+
+def bind_cpointer(cptr, own=True):
+    raise NotImplementedError("raw device pointers are not part of the port's surface")

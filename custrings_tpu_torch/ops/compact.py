@@ -11,8 +11,8 @@ TPU's window-overflow test and its scatter fallback have no counterpart.
 The plain version is a masked select into a zero buffer; a CPU tensor
 takes it.
 
-Nothing in the package calls it, as in the JAX package: its users are the
-tests and `chip_smoke.py`.
+`urlencode.url_decode` writes its output with it (in the JAX package
+nothing calls it).
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@
                                            # the per-op rows of those ops alone
     python3 profile_slice.py --ops text    # the per-op rows of the text ops
     python3 profile_slice.py --ops clean   # the per-op rows of the clean ops
+    python3 profile_slice.py --ops convert # the per-op rows of the conversion ops
 
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
 "THE"), dictionary_encode, the growing and shrinking replace_literal
@@ -21,7 +22,11 @@ on their vocabulary), each op of chip_smoke.py's clean phase at the op
 level (strip, the case maps, translate, the slices, the paddings, wrap,
 the searches and compares, len and the predicates, cat, fillna, insert,
 slice_replace, order and sort, scatter, append) on
-chip_smoke.make_clean_rows() of those rows, and for each matcher of the
+chip_smoke.make_clean_rows() of those rows, each op of chip_smoke.py's
+convert phase at the op level (the parsers, the formatters on the
+parsers' results, url_encode, url_decode of its output and of the url
+rows, get_info) on the columns of chip_smoke.make_convert_rows() as
+from_csv reads them, and for each matcher of the
 matchers phase (contains_re of ERR, ISO and MONTH on the 2^20 log rows of
 chip_smoke.make_logs(), of BIG on their first 65,536, of ERR on the 2,048
 long rows): the wall time without the profiler, and under torch.profiler
@@ -48,7 +53,7 @@ naming the package's directory.
 
 `--ops a,b,...` runs the per-op rows of the named ops alone (names as in
 the op table in main(); `text` names every text op, `clean` every clean
-op); they call only the package's entry points, so an earlier tree's
+op, `convert` every conversion op); they call only the package's entry points, so an earlier tree's
 package is profiled the same way.  The kernels' own
 times at the main path's calls are chip_smoke.py's kernel phase.
 """
@@ -123,8 +128,10 @@ def main() -> int:
         print(cs._nvidia_smi(), flush=True)
         return 0
     from custrings_tpu_torch import column
-    from custrings_tpu_torch.ops import (array, attrs, case, combine, compact, find, hash, layout, modify,
-                                         pad, split, strip, substr, unique)
+    from custrings_tpu_torch.ops import (array, attrs, case, combine, compact, convert, datetime_k, find,
+                                         format_k, hash, layout, modify, pad, split, strip, substr, unique,
+                                         urlencode)
+    from custrings_tpu_torch.utils import stats
     from custrings_tpu_torch.regex import ops as rx
     from custrings_tpu_torch.text import distance, ngram, token
 
@@ -213,12 +220,42 @@ def main() -> int:
         "remove_strings": ("clean", lambda c: array.remove_strings(c, per_row("idx"))),
         "append": ("clean", lambda c: array.append([c, made("clean head")])),
     }
+    def parsed(key):  # a parser's result on its whole column, made once
+        if key not in cols:
+            fn, src = {"stoi": (convert.stoi, "int"), "stol": (convert.stol, "int"),
+                       "stof": (convert.stof, "float"), "stod": (convert.stod, "float"),
+                       "ip2int": (convert.ip2int, "ip"), "to_booleans": (convert.to_booleans, "bool"),
+                       "timestamp2int": (datetime_k.timestamp2int, "ts")}[key]
+            cols[key] = fn(made(f"conv {src}"))
+        return cols[key]
+
+    convert_ops = {
+        **{name: (f"conv {src}", lambda c, name=name: getattr(convert, name)(c))
+           for name, src in (("stoi", "int"), ("stol", "int"), ("htoi", "hex"), ("stof", "float"),
+                             ("stod", "float"), ("ip2int", "ip"), ("to_booleans", "bool"))},
+        "timestamp2int": ("conv ts", lambda c: datetime_k.timestamp2int(c)),
+        "timestamp2int(ms)": ("conv ts_ms", lambda c: datetime_k.timestamp2int(c, cs.TS_MS_FORMAT, "ms")),
+        "itos": ("conv int", lambda c: format_k.itos_device(parsed("stoi"), c.validity)),
+        "ltos": ("conv int", lambda c: format_k.itos_device(parsed("stol"), c.validity)),
+        "ftos": ("conv float", lambda c: format_k.ftos_device(parsed("stof"), c.validity)),
+        "dtos": ("conv float", lambda c: format_k.ftos_device(parsed("stod"), c.validity)),
+        "int2ip": ("conv ip", lambda c: format_k.int2ip_device(parsed("ip2int"), c.validity)),
+        "from_booleans": ("conv bool", lambda c: format_k.from_booleans_device(parsed("to_booleans"), "True",
+                                                                               "False", c.validity)),
+        "int2timestamp": ("conv ts", lambda c: format_k.int2timestamp_device(
+            parsed("timestamp2int"), "s", datetime_k._compile(datetime_k.DEFAULT_FORMAT), c.validity)),
+        "url_encode": ("conv url", lambda c: urlencode.url_encode(c)),
+        "url_decode(url_encode)": ("conv url encoded", lambda c: urlencode.url_decode(c)),
+        "url_decode": ("conv url", lambda c: urlencode.url_decode(c)),
+        "get_info": ("conv int", lambda c: stats.compute_statistics(c)),
+    }
     ops.update(text_ops)
     ops.update(clean_ops)
+    ops.update(convert_ops)
     if matchers:
         ops = {k: v for k, v in ops.items() if k == "contains_re" or k.endswith("(K2b)")}
     if only is not None:
-        groups = {"text": text_ops, "clean": clean_ops}
+        groups = {"text": text_ops, "clean": clean_ops, "convert": convert_ops}
         only = [k for name in only for k in groups.get(name, [name])]
         unknown = set(only) - set(ops)
         if unknown:
@@ -251,6 +288,13 @@ def main() -> int:
             "clean": clean, "clean stripped": [None if x is None else x.strip(" \n\t") for x in clean],
             "clean targets": list(cs.CLEAN_TARGETS), "clean head": clean[: len(idx)], "X": ["X"],
         })
+
+    if any(src.startswith("conv ") for src in srcs):
+        import urllib.parse
+
+        table = cs.read_back_py(cs.make_convert_rows(cs.ROWS, seed=7))
+        corpora.update({f"conv {k}": v for k, v in table.items()})
+        corpora["conv url encoded"] = [None if x is None else urllib.parse.quote(x, safe="") for x in table["url"]]
 
     def fresh(src="tweets"):
         return column.from_host_strings(corpora[src], "cuda")
