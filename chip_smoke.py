@@ -2447,6 +2447,17 @@ def stod_py(strs):
     it takes 1 away), then after an e/E an optional sign and every later
     digit of the row (int32 arithmetic), and sign * digits * 10.0**exp;
     rows starting nan/NaN, inf/Inf, -inf/-Inf are the specials."""
+    sign, digits, exp, special = stod_parts(strs)
+    with np.errstate(over="ignore", invalid="ignore"):
+        val = sign * digits * np.power(10.0, exp)
+    for i, v in special.items():
+        val[i] = v
+    return val
+
+
+def stod_parts(strs):
+    """stod_py's (sign, digits, exp) float64[rows] and its {row: special
+    value}."""
     n = len(strs)
     sign, digits, exp = np.ones(n), np.zeros(n), np.zeros(n)
     special = {}
@@ -2483,11 +2494,7 @@ def stod_py(strs):
             e10 = _wrap(-e10 if rest[:1] == "-" else e10, 32)
         digits[i] = d
         exp[i] = _wrap(off + e10, 32)
-    with np.errstate(over="ignore", invalid="ignore"):
-        val = sign * digits * np.power(10.0, exp)
-    for i, v in special.items():
-        val[i] = v
-    return val
+    return sign, digits, exp, special
 
 
 def _ulps(got, want):

@@ -51,6 +51,11 @@ class StringColumn:
         """True total byte count (device sync)."""
         return int(self.offsets[-1])
 
+    def memsize(self) -> int:
+        """Bytes held on the device: the byte buffer at its capacity, the
+        offsets and the validity mask."""
+        return sum(t.numel() * t.element_size() for t in (self.data, self.offsets, self.validity))
+
     def lengths(self) -> torch.Tensor:
         """Byte length of each row, int32[rows] (0 for nulls)."""
         return self.offsets[1:] - self.offsets[:-1]

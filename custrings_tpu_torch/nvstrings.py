@@ -91,9 +91,7 @@ class nvstrings:
         return data, offsets, nulls
 
     def memsize(self):
-        """Bytes held on the device: the byte buffer at its capacity, the
-        offsets and the validity mask."""
-        return sum(t.numel() * t.element_size() for t in (self._col.data, self._col.offsets, self._col.validity))
+        return self._col.memsize()
 
     def device_memory(self):
         return self.memsize()

@@ -2,13 +2,13 @@
 
 Port of `custrings_tpu/ops/convert.py`: the parsers `stol`, `stoi`,
 `htoi`, `stod`, `stof`, `ip2int` and `to_booleans`, the formatters
-`itos`, `ftos`, `int2ip` and `from_booleans` (on `format_k`) with
-`_valid_from_bitmask`, and the host oracle `_float_to_string`
-(`_dissect_value`, `_dec_str`), copied so that the port imports nothing
-of the JAX package.  `hash_mm3` is `ops/hash.py`.
+`itos`, `ftos`, `int2ip` and `from_booleans` (on `format_k`, whose
+`_upload` / `_valid_from_bitmask` take their host values), and the host
+oracle `_float_to_string` (`_dissect_value`, `_dec_str`), copied so that
+the port imports nothing of the JAX package.  `hash_mm3` is `ops/hash.py`.
 
 A parser reads each row's bytes from the column's padded view (K1,
-`layout.padded_view`), transposed so that each byte position is one
+`layout.char_planes`), transposed so that each byte position is one
 contiguous plane, and runs the reference's per-character state machine
 one position at a time over all rows, as the JAX package's `lax.scan`
 does.  The loop runs over the longest row's bytes only: past a row's end
@@ -25,19 +25,12 @@ import math
 import numpy as np
 import torch
 
-from ..column import StringColumn, _device
+from ..column import StringColumn
 from . import format_k, layout
+from .format_k import _upload
 from .find import startswith
 
 _I64 = torch.int64
-
-
-def _char_planes(col: StringColumn):
-    """(int32[w, rows] byte planes, zero past each row's length, int32[rows]
-    lengths), w the longest row's bytes (at least 1)."""
-    lens = col.lengths()
-    w = max(int(lens.max()) if col.size else 0, 1)
-    return layout.padded_view(col, w).t().contiguous().to(torch.int32), lens
 
 
 def _is_digit(c):
@@ -50,7 +43,7 @@ def _is_digit(c):
 def stol(col: StringColumn) -> torch.Tensor:
     """int64[rows]: an optional sign, then digits up to the first non-digit
     (custring.inl stol); 0 for null rows."""
-    planes, lens = _char_planes(col)
+    planes, lens = layout.char_planes(col)
     n = col.size
     neg = planes[0] == ord("-")
     signed = neg | (planes[0] == ord("+"))
@@ -79,7 +72,7 @@ def htoi(col: StringColumn) -> torch.Tensor:
     """int64[rows]: hex digits with an optional 0x (convert.cu htoi:202).
     Non-hex bytes before the first hex digit are skipped, as are an x or X
     at positions 0 and 1."""
-    planes, lens = _char_planes(col)
+    planes, lens = layout.char_planes(col)
     n = col.size
     val = torch.zeros(n, dtype=_I64, device=col.device)
     done = torch.zeros(n, dtype=torch.bool, device=col.device)
@@ -103,7 +96,7 @@ def stod(col: StringColumn) -> torch.Tensor:
     """float64[rows] (custr::stod): nan/inf/-inf specials, a sign, a
     mantissa with '.', an optional e/E exponent; 0 for null rows.  The
     value is sign * digits * 10**exp, computed as the JAX package does."""
-    planes, lens = _char_planes(col)
+    planes, lens = layout.char_planes(col)
     n, dev = col.size, col.device
     # stages: 0 start, 1 mantissa, 2 exponent start, 3 exponent digits, 4 done
     sign = torch.ones(n, dtype=torch.float64, device=dev)
@@ -159,7 +152,7 @@ def stof(col: StringColumn) -> torch.Tensor:
 def ip2int(col: StringColumn) -> torch.Tensor:
     """int64[rows] in [0, 2^32): 'a.b.c.d' IPv4 (convert.cu ip2int:739);
     each dot shifts the octet in, other non-digits are skipped."""
-    planes, lens = _char_planes(col)
+    planes, lens = layout.char_planes(col)
     n = col.size
     octet = torch.zeros(n, dtype=_I64, device=col.device)
     result = torch.zeros(n, dtype=_I64, device=col.device)
@@ -181,27 +174,6 @@ def to_booleans(col: StringColumn, true: str = "True") -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- format
-
-
-def _valid_from_bitmask(nulls, count: int) -> np.ndarray:
-    """Host bool[count] validity: all valid without `nulls`; a bool array
-    of `count` marks the null rows; anything else is an Arrow bitmask
-    (bit set = valid)."""
-    if nulls is None:
-        return np.ones(count, bool)
-    arr = np.asarray(nulls)
-    if arr.dtype == np.bool_ and arr.size == count:
-        return ~arr
-    bits = np.unpackbits(arr.view(np.uint8).ravel(), bitorder="little")
-    return bits[:count].astype(bool)
-
-
-def _upload(values, dtype, nulls, device):
-    """(values as a `dtype` tensor, bool validity) on `device`."""
-    dev = _device(device)
-    vals = np.ascontiguousarray(values, dtype=dtype)
-    valid = _valid_from_bitmask(nulls, len(vals))
-    return torch.from_numpy(vals).to(dev), torch.from_numpy(valid).to(dev)
 
 
 def itos(values, nulls=None, device="cuda") -> StringColumn:

@@ -12,7 +12,7 @@ A tiny strptime/strftime subset of cpp/src/strings/datetime.cu
 %M %S %f %z %Z %j and 9 time units.  Every specifier is fixed width, so a
 format is a static layout of (specifier, position, length) and the parser
 reads each field's digits at its positions from the rows' padded view
-(K1, `convert._char_planes`).  The JAX package gathers that view with plain
+(K1, `layout.char_planes`).  The JAX package gathers that view with plain
 XLA only because Mosaic's lowering recursed under x64; the port takes
 the package's view.
 """
@@ -23,6 +23,8 @@ import numpy as np
 import torch
 
 from ..column import StringColumn, to_host_strings
+from .format_k import _upload, int2timestamp_device
+from .layout import char_planes
 
 DEFAULT_FORMAT = "%Y-%m-%dT%H:%M:%SZ"
 
@@ -97,10 +99,8 @@ def timestamp2int_device(col: StringColumn, layout, units: str) -> torch.Tensor:
     reference's doy quirk), %p adds 12 when hour <= 12 and the field is PM,
     %Z accepts only UTC (any case), %z is a fixed sign+HHMM ADDED to the
     timestamp.  Floor division as in the JAX package."""
-    from .convert import _char_planes
-
     n = col.size
-    planes, lens = _char_planes(col)
+    planes, lens = char_planes(col)
 
     def at(p):
         return planes[min(p, planes.shape[0] - 1)]
@@ -189,12 +189,9 @@ def timestamp2int(col: StringColumn, fmt: str | None = None, units: str = "s") -
 def int2timestamp(values, units: str = "s", fmt: str | None = None, nulls=None,
                   device="cuda") -> StringColumn:
     """Host int64 epoch values -> a column of `fmt` timestamps on `device`."""
-    from .convert import _upload
-    from .format_k import int2timestamp_device
-
     items = _compile(fmt or DEFAULT_FORMAT)
     vals, valid = _upload(values, np.int64, nulls, device)
-    return int2timestamp_device(vals, units, items, valid)
+    return int2timestamp_device(vals, units, items, valid, _spec_len("f", units))
 
 
 # ------------------------------------------------------------ host oracles

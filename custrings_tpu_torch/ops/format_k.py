@@ -2,11 +2,12 @@
 
 Port of `custrings_tpu/ops/format_k.py` (`itos_device`, `int2ip_device`,
 `from_booleans_device`, `ftos_device` with `_dissect_vec`,
-`int2timestamp_device` with `_civil_from_days`).  Each writer computes
-every row's byte size with compare ladders, then builds the column with
-`column.build_column`: the offsets are one prefix sum (K3) and every
-output byte finds its row and its offset in the row (K3) and computes its
-character, as in the JAX package.
+`int2timestamp_device` with `_civil_from_days`), with `_upload`, which
+takes the host values and their nulls (`_valid_from_bitmask`) to the
+device.  Each writer computes every row's byte size with compare ladders,
+then builds the column with `column.build_column`: the offsets are one
+prefix sum (K3) and every output byte finds its row and its offset in the
+row (K3) and computes its character, as in the JAX package.
 
 torch's unsigned 64-bit integers lack the arithmetic used here, so
 everything is int64.  `itos` takes its digits from the non-positive value
@@ -19,11 +20,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..column import StringColumn, build_column, cumsum0, materialize_bytes
+from ..column import StringColumn, _device, build_column, cumsum0, materialize_bytes
 from ..config import bucket_bytes
 
 _I64 = torch.int64
 _POW10 = [10**e for e in range(19)]
+
+
+def _valid_from_bitmask(nulls, count: int) -> np.ndarray:
+    """Host bool[count] validity: all valid without `nulls`; a bool array
+    of `count` marks the null rows; anything else is an Arrow bitmask
+    (bit set = valid)."""
+    if nulls is None:
+        return np.ones(count, bool)
+    arr = np.asarray(nulls)
+    if arr.dtype == np.bool_ and arr.size == count:
+        return ~arr
+    bits = np.unpackbits(arr.view(np.uint8).ravel(), bitorder="little")
+    return bits[:count].astype(bool)
+
+
+def _upload(values, dtype, nulls, device):
+    """(values as a `dtype` tensor, bool validity) on `device`."""
+    dev = _device(device)
+    vals = np.ascontiguousarray(values, dtype=dtype)
+    valid = _valid_from_bitmask(nulls, len(vals))
+    return torch.from_numpy(vals).to(dev), torch.from_numpy(valid).to(dev)
 
 
 def _pow10(e: torch.Tensor) -> torch.Tensor:
@@ -237,13 +259,14 @@ _PER_DAY = {"D": 1, "h": 24, "m": 1440, "s": 86400,
             "ms": 86400 * 1000, "us": 86400 * 10**6, "ns": 86400 * 10**9}
 
 
-def int2timestamp_device(values: torch.Tensor, units: str, items, validity: torch.Tensor) -> StringColumn:
+def int2timestamp_device(values: torch.Tensor, units: str, items, validity: torch.Tensor,
+                         sub_width: int) -> StringColumn:
     """int64 epoch values -> formatted timestamp column (datetime.cu
     long2timestamp:639).  Every specifier is fixed width, so the rows are
     one [rows, width] char matrix built a format item at a time, written
-    out as the column's bytes."""
-    from .datetime_k import _UNITS_PER_SEC, _spec_len
-
+    out as the column's bytes.  `sub_width` is %f's width in `units`
+    (`datetime_k._spec_len`): 3, 6 or 9 digits, a second being
+    10**sub_width units for ms, us and ns."""
     v = values.to(_I64)
     n = v.shape[0]
     dev = v.device
@@ -263,7 +286,7 @@ def int2timestamp_device(values: torch.Tensor, units: str, items, validity: torc
         elif units == "s":
             H, M, S = (v // 3600) % 24, (v // 60) % 60, v % 60
         elif units in ("ms", "us", "ns"):
-            k = _UNITS_PER_SEC[units]
+            k = 10**sub_width
             H = (v // (3600 * k)) % 24
             M = (v // (60 * k)) % 60
             S = (v // k) % 60
@@ -285,7 +308,7 @@ def int2timestamp_device(values: torch.Tensor, units: str, items, validity: torc
     # default case and write nothing
     fields = {"Y": (lambda: Y, 4), "y": (lambda: (Y - 1900).clamp(min=0) % 100, 2),
               "m": (lambda: mo, 2), "d": (lambda: d, 2), "H": (lambda: H, 2), "I": (lambda: H % 12, 2),
-              "M": (lambda: M, 2), "S": (lambda: S, 2), "f": (lambda: sub, _spec_len("f", units)),
+              "M": (lambda: M, 2), "S": (lambda: S, 2), "f": (lambda: sub, sub_width),
               "j": (lambda: d, 3)}
     segs = []
     for kind, spec in items:

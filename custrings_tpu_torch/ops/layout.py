@@ -2,7 +2,7 @@
 
 Port of the main-path part of `custrings_tpu/ops/layout.py`: the
 memoized planes (`tail_plane`, `row_bounds_planes`), the ASCII facts
-(`is_ascii`, `row_nonascii_ids`), `max_row_bytes`, `padded_view`,
+(`is_ascii`, `row_nonascii_ids`), `max_row_bytes`, `padded_view`, `char_planes`,
 `char_matrix` / `char_matrix_rows`, the host-side `length_buckets`, the
 column-wide char index (`char_map`, `char_counts`, `codepoints`),
 `utf8_width`, `encode_codepoints` and `gather_bytes`.
@@ -173,6 +173,15 @@ def padded_view(col: StringColumn, width: int | None = None) -> torch.Tensor:
         else:
             c[key] = _window_view(col, width)
     return c[key]
+
+
+def char_planes(col: StringColumn):
+    """(int32[w, rows] byte planes, zero past each row's length, int32[rows]
+    lengths), w the longest row's bytes (at least 1): the padded view
+    transposed, so each byte position is one contiguous plane."""
+    lens = col.lengths()
+    w = max(int(lens.max()) if col.size else 0, 1)
+    return padded_view(col, w).t().contiguous().to(torch.int32), lens
 
 
 def row_nonascii_ids(col: StringColumn) -> np.ndarray:

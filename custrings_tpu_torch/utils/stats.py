@@ -46,7 +46,7 @@ def compute_statistics(col: StringColumn) -> dict:
         "max_bytes": int(vl.max()) if len(vl) else 0,
         "min_bytes": int(vl.min()) if len(vl) else 0,
         "pct95_bytes": float(np.percentile(vl, 95)) if len(vl) else 0.0,
-        "device_memory": int(sum(t.numel() * t.element_size() for t in (col.data, col.offsets, col.validity))),
+        "device_memory": col.memsize(),
         **counts,
         "char_histogram": dict(zip(hist_vals.cpu().tolist(), hist_counts.cpu().tolist())),
     }

@@ -243,7 +243,8 @@ def main() -> int:
         "from_booleans": ("conv bool", lambda c: format_k.from_booleans_device(parsed("to_booleans"), "True",
                                                                                "False", c.validity)),
         "int2timestamp": ("conv ts", lambda c: format_k.int2timestamp_device(
-            parsed("timestamp2int"), "s", datetime_k._compile(datetime_k.DEFAULT_FORMAT), c.validity)),
+            parsed("timestamp2int"), "s", datetime_k._compile(datetime_k.DEFAULT_FORMAT), c.validity,
+            datetime_k._spec_len("f", "s"))),
         "url_encode": ("conv url", lambda c: urlencode.url_encode(c)),
         "url_decode(url_encode)": ("conv url encoded", lambda c: urlencode.url_decode(c)),
         "url_decode": ("conv url", lambda c: urlencode.url_decode(c)),

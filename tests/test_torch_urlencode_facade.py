@@ -9,6 +9,7 @@ facade's surface against the JAX facade's."""
 
 import re
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -32,6 +33,12 @@ URL_ROWS = CS.make_convert_rows(1024, seed=9)["url"] + [
     "hello world", "a/b?c=d", "héllo", None, "ok._~-", "", "%4", "%%41", "%zz", "100%", "%", "%%", "%C3",
     "%F0%9F%98%80", "%2Fhome%2fnfs", "987%20ZYX", "http://www.hellow.com?k1=acc%C3%A9nted&k2=a%2F/b.c",
     "x\x00y", "😀 🔥", "%25%32%35"]
+
+
+def _same_facade(t, j):
+    """Two facades' columns: valid rows' bytes, offsets and validity."""
+    a, b = _bytes_of(t._col, j._col)
+    assert a == b
 
 
 def _bytes_of(col_t, col_j):
@@ -104,12 +111,15 @@ def test_read_column_matches_jax(tmp_path, flags):
 
 
 def test_from_csv(tmp_path):
+    """Held to the JAX facade at flags 0 (which it drops: it passes no
+    flags on), and to literals."""
     p = tmp_path / "t.csv"
-    p.write_text("a,b\n1,x\n2,y\n3,\n")
-    assert tnv.from_csv(str(p), 1, device="cpu").to_host() == ["x", "y", None]
-    assert tnv.from_csv(str(p), 1, flags=tcsv.CSV_NULL_IS_EMPTY, device="cpu").to_host() == ["x", "y", ""]
+    p.write_text('a,b\n1,x\n2,y\n3,\n"4,5","z""w"\n6\n')
+    for column, lines in ((0, 0), (1, 0), (0, 2), (1, 3), (2, 0)):
+        _same_facade(tnv.from_csv(str(p), column, lines, device="cpu"), jnv.from_csv(str(p), column, lines))
+    assert tnv.from_csv(str(p), 1, device="cpu").to_host() == ["x", "y", None, 'z""w', None]
+    assert tnv.from_csv(str(p), 1, flags=tcsv.CSV_NULL_IS_EMPTY, device="cpu").to_host() == ["x", "y", "", 'z""w', None]
     assert tnv.from_csv(str(p), 0, lines=2, device="cpu").to_host() == ["1", "2"]
-    assert jnv.from_csv(str(p), 1).to_host() == ["x", "y", None]
 
 
 def test_get_info_matches_jax():
@@ -186,6 +196,13 @@ def test_readme_tips_demo():
 
 
 def test_getitem_and_iter():
+    """Every kind of key held to the JAX facade, then to literals."""
+    rows = ["a", None, "ccc", "", "dé"]
+    s, js = tnv.to_device(rows, device="cpu"), jnv.to_device(rows)
+    for key in (1, -1, np.int64(2), slice(1, 3), slice(5, None), slice(None, None, -2), slice(-2, None), [0, 3],
+                [-1, 0, -5], np.array([3, -2]), np.array([True, False, False, True, True]), []):
+        _same_facade(s[key], js[key])
+    assert list(s) == list(js) and str(s) == str(js)
     s = tnv.to_device(["a", "b", "c", "d"], device="cpu")
     assert s[1].to_host() == ["b"]
     assert s[1:3].to_host() == ["b", "c"]
@@ -195,6 +212,33 @@ def test_getitem_and_iter():
     assert list(s) == ["a", "b", "c", "d"] and str(s) == str(["a", "b", "c", "d"])
     with pytest.raises(TypeError):
         s["x"]
+
+
+PARSE_ROWS = ["1234", "-876", "5.3", "hello", "", None, "123456789012345", "1234.0", "-876.5", "5.3e2", ".5",
+              "-.02", "nan", "inf", "-Inf", "-0", "ABCDEF", "0xDEADBEEF", "ff", "1A2", "cafe", "-0.12", ".55",
+              "abc123", "123abc", "456e", "-1.78e+5", "192.168.0.1", "10.0.0.255", "0.0.0.0", "41.197.0.1",
+              "True", "False", "true", "9223372036854775807", "-9223372036854775808"]
+
+
+def test_number_parsers_match_the_jax_facade():
+    """Every facade parser on one column (one width, as the JAX parsers'
+    scan compiles a program per shape), held to the JAX facade under
+    64-bit mode: ints, bools and null rows exactly; stod and stof as
+    tests/test_torch_convert.py holds them, within 2 ulp and 1 ulp, NaN,
+    the infinities and the sign exact."""
+    s, js = tnv.to_device(PARSE_ROWS, device="cpu"), jnv.to_device(PARSE_ROWS)
+    calls = [("stoi", {}), ("stol", {}), ("htoi", {}), ("ip2int", {}), ("to_booleans", {}),
+             ("to_booleans", {"true": "true"}), ("stod", {}), ("stof", {})]
+    with jax.enable_x64(True):
+        want = [getattr(js, name)(**kw) for name, kw in calls]
+    got = [getattr(s, name)(**kw) for name, kw in calls]
+    for (name, _), g, w in zip(calls[:6], got, want):
+        assert g == w, name
+    for g, w, dtype, ulps in ((got[6], want[6], np.float64, 2), (got[7], want[7], np.float32, 1)):
+        assert [v is None for v in g] == [v is None for v in w]
+        gv, _ = CS._parts(g, dtype)
+        wv, _ = CS._parts(w, dtype)
+        assert np.all(CS._ulps(gv, wv) <= ulps)
 
 
 def test_number_parsers_through_the_facade():
@@ -223,6 +267,32 @@ def test_number_parsers_through_the_facade():
     s = dev(["true", "false", None, "", "true", "True"])
     assert s.to_booleans() == [False, False, None, False, False, True]
     assert s.to_booleans(true="true") == [True, False, None, False, True, False]
+
+
+F64 = np.array([0.0, 1.5, -2.75, 1234567890.5, 103342.313, -25.4294, 839542223232.794248339, np.nan, -np.inf,
+                -0.0, 1e-5, 123456.7])
+FORMATTERS = {  # a facade function and its arguments, bool-array and Arrow-bitmask nulls among them
+    "itos": ([0, -25, 314, 2**31 - 1, -(2**31)], {"nulls": np.array([False, False, True, False, False])}),
+    "ltos": ([0, -25, 2**63 - 1, -(2**63), 7], {"nulls": np.packbits([1, 1, 1, 1, 0], bitorder="little")}),
+    "ftos": (F64.astype(np.float32), {"nulls": np.packbits([1] * 11 + [0], bitorder="little")}),
+    "dtos": (F64, {"nulls": np.arange(12) % 5 == 3}),
+    "int2ip": ([3232235521, None, 167772161, 0, 2**32 - 1, 700055553], {"nulls": np.array([0b011011], np.uint8)}),
+    "from_booleans": ([True, False, False, True], {"nulls": [11]}),
+    "from_booleans(Yes)": ([True, False, True], {"true": "Yes", "false": "", "nulls": np.array([False, False, True])}),
+    "int2timestamp": ([0, 86400, 1553085296, -1, 1582934400], {"nulls": np.array([True, False, False, False, False])}),
+    "int2timestamp(ms)": ([0, 1553085296123, -1], {"units": "ms", "format": "%Y-%m-%d %H:%M:%S.%f %p",
+                                                   "nulls": np.array([4], np.uint8)}),
+}
+
+
+@pytest.mark.parametrize("name", FORMATTERS)
+def test_formatters_match_the_jax_facade(name):
+    values, kw = FORMATTERS[name]
+    fn = name.split("(")[0]
+    got = getattr(tnv, fn)(values, device="cpu", **kw)
+    with jax.enable_x64(True):
+        want = getattr(jnv, fn)(values, **kw)
+    _same_facade(got, want)
 
 
 def test_formatters_through_the_facade():
@@ -262,6 +332,22 @@ def test_plain_members_match_jax():
     tnv.free(s)
     with pytest.raises(NotImplementedError):
         tnv.bind_cpointer(0)
+
+
+def test_ipc_offsets_and_concat_match_jax():
+    """create_from_ipc, from_offsets (with and without a bitmask, and a
+    count below the buffers') and from_strings held to the JAX facade,
+    each package reading the other's IPC buffers too."""
+    rows = ["dog and cat", None, "accénted", "", "x"]
+    s, js = tnv.to_device(rows, device="cpu"), jnv.to_device(rows)
+    _same_facade(tnv.create_from_ipc(s.get_ipc_data(), device="cpu"), jnv.create_from_ipc(js.get_ipc_data()))
+    _same_facade(tnv.create_from_ipc(js.get_ipc_data(), device="cpu"), jnv.create_from_ipc(s.get_ipc_data()))
+    data, offs, nulls = js.to_offsets()
+    for count, bits in ((5, nulls), (5, None), (3, nulls), (2, None)):
+        _same_facade(tnv.from_offsets(data, offs, count, bits, device="cpu"), jnv.from_offsets(data, offs, count, bits))
+    s2, js2 = tnv.to_device(["a", None], device="cpu"), jnv.to_device(["a", None])
+    _same_facade(tnv.from_strings(s, [s2, s]), jnv.from_strings(js, [js2, js]))
+    _same_facade(tnv.from_strings(s2), jnv.from_strings(js2))
 
 
 def test_ipc_offsets_and_concat_roundtrip():
