@@ -129,16 +129,37 @@ Phases, each printing one JSON line:
                (captured): url_encode's byte expansion, url_decode's
                compaction (with torch.masked_select's time), stod's view;
                each against its plain version, exactly, with its own bound
- 10. launches — each path's kernel counters (reset just before the path,
+ 10. category — a categorical column of 2^20 Zipf draws over ~50,000
+               keys of corpus tokens (make_category_rows: ~5% non-ASCII,
+               64 long keys sharing 64- and 256-byte prefixes, ~1% null
+               and empty) and a second of 2^18 rows sharing half its keys,
+               and 2^20-value columns of int8, int32, int64, float32 and
+               float64 (make_numeric_columns: NaN, -NaN, +-0.0, +-inf,
+               the extremes, ~1% bitmask nulls), through every method of
+               nvcategory and numeric_category (lookups of 100 present
+               and absent keys, gathers, row adds and removes, the keyset
+               algebra, both merges, lookups on the unsorted keyset of a
+               second merge_category); every row against oracles written
+               to the JAX package's semantics (_CatOracle, _NumOracle;
+               numeric keys bitwise)
+     kernel_category — K1b at searchsorted_keys' own key words (as
+               remove_strings calls it) and K3 at from_numbers' rank
+               scan (captured); each against its plain version, exactly,
+               with its own bound
+     tracing — the slice's three ops with utils.tracing enabled: a
+               report row each with calls >= 1 and bytes > 0, results
+               identical to the untraced run
+ 11. launches — each path's kernel counters (reset just before the path,
                read just after) are above zero for the kernels it runs;
                K3 sum's launches are also split by input size
 Then the kernels JSON line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line.  Any failure exits nonzero.
 
 make_corpus() builds the tweet-like corpus, make_logs() the log lines,
-make_text_rows() the text phase's rows and make_convert_rows() the
-convert phase's table from a seed with numpy; the CPU tests import them
-at a small size.
+make_text_rows() the text phase's rows, make_convert_rows() the convert
+phase's table and make_category_rows() / make_numeric_columns() the
+category phase's columns from a seed with numpy; the CPU tests import
+them at a small size.
 """
 
 from __future__ import annotations
@@ -2741,6 +2762,567 @@ def _convert_kernel_shapes(torch, url_strs, float_strs, device="cuda"):
             ("window_bytes", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170", [view(*k1.calls[0][1])])]
 
 
+# ---------------------------------------------------------------- category
+
+CATEGORY_KEYS = 50_000
+CATEGORY_B_ROWS = 1 << 18
+CATEGORY_LOOKUPS = 100
+NUMERIC_DTYPES = ("int8", "int32", "int64", "float32", "float64")
+_P256 = _cut(" ".join([_PREFIXES[0]] + _PREFIXES * 3), 256)  # starts with _PREFIXES[0]
+
+
+def _category_keys(rng, n: int):
+    """n distinct keys of one to three corpus tokens, ~5% led by a
+    non-ASCII token (4-byte UTF-8 among them), and 64 long keys: 32 share
+    the 64-byte _PREFIXES[0] and 32 the 256-byte _P256 that starts with
+    it (the prefixes themselves among them); shuffled."""
+    tok, probs = _tokens()
+    longs = [_PREFIXES[0]] + [f"{_PREFIXES[0]} part {i:02d}" for i in range(31)]
+    longs += [_P256] + [f"{_P256} part {i:02d}" for i in range(31)]
+    seen = dict.fromkeys(longs)
+    while len(seen) < n:
+        k = rng.integers(1, 4, 4 * n)
+        draws = tok[rng.choice(len(tok), (4 * n, 3), p=probs)]
+        na = rng.random(4 * n) < 0.05
+        lead = rng.integers(0, len(_NONASCII), 4 * n)
+        for i in range(4 * n):
+            key = " ".join(draws[i, : k[i]])
+            seen.setdefault(_NONASCII[lead[i]] + " " + key if na[i] else key)
+            if len(seen) == n:
+                break
+    keys = list(seen)
+    return [keys[i] for i in rng.permutation(n)]
+
+
+def _zipf_rows(rng, keys, n: int):
+    """n Zipf draws (s = 1) over the keys, ~1% null and ~1% empty."""
+    p = 1.0 / np.arange(1, len(keys) + 1)
+    pick = rng.choice(len(keys), n, p=p / p.sum())
+    kind = rng.random(n)
+    return [None if k < 0.01 else "" if k < 0.02 else keys[i] for i, k in zip(pick.tolist(), kind.tolist())]
+
+
+def make_category_rows(n: int, seed: int = 8, nkeys: int = CATEGORY_KEYS, b_rows: int = CATEGORY_B_ROWS):
+    """(rows a, rows b, the keys): a categorical column of n Zipf draws
+    over nkeys distinct keys (_category_keys), and a second of b_rows
+    rows drawing from the last half of a's keys and as many new ones."""
+    rng = np.random.default_rng(seed)
+    keys = _category_keys(rng, nkeys + nkeys // 2)
+    return _zipf_rows(rng, keys[:nkeys], n), _zipf_rows(rng, keys[nkeys // 2:], b_rows), keys
+
+
+_INT_RANGE = {"int8": (-128, 127), "int32": (-(1 << 31), (1 << 31) - 1), "int64": (-(1 << 63), (1 << 63) - 1)}
+
+
+def _numeric_edges(dtype: str):
+    if dtype in _INT_RANGE:
+        lo, hi = _INT_RANGE[dtype]
+        return np.array([lo, hi, 0, -1, 1, lo + 1, hi - 1], dtype=dtype)
+    f = np.finfo(dtype)
+    return np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, f.max, -f.max, f.smallest_subnormal,
+                     -f.smallest_subnormal, f.tiny], dtype=dtype)
+
+
+def make_numeric_columns(n: int, seed: int = 9, b_rows: int = CATEGORY_B_ROWS):
+    """{dtype: (values a, a's Arrow null bitmask, values b, b's bitmask)}
+    for each of NUMERIC_DTYPES: Zipf draws (s = 1) over a pool of ~5,000
+    values (every int8), the dtype's edge values (its extremes; NaN,
+    -NaN, +-0.0, +-inf, the largest, the smallest subnormal) at ~0.1%
+    each, ~1% null; b draws from the pool's last half and as many new
+    values."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for dt in NUMERIC_DTYPES:
+        if dt == "int8":
+            pool = rng.permutation(np.arange(-128, 128)).astype(dt)
+        elif dt in _INT_RANGE:
+            span = 1 << (20 if dt == "int32" else 62)
+            pool = np.unique(rng.integers(-span, span, 7500)).astype(dt)
+            pool = pool[rng.permutation(len(pool))]
+        else:
+            pool = np.unique(np.round(rng.standard_normal(7500) * 1000, 2).astype(dt))
+            pool = pool[rng.permutation(len(pool))]
+        m = len(pool) * 2 // 3
+        edges = _numeric_edges(dt)
+        cols = []
+        for vals_pool, rows in ((pool[:m], n), (pool[m // 2:], b_rows)):
+            p = 1.0 / np.arange(1, len(vals_pool) + 1)
+            vals = vals_pool[rng.choice(len(vals_pool), rows, p=p / p.sum())]
+            edge = rng.random(rows) < 0.001 * len(edges)
+            vals[edge] = edges[rng.integers(0, len(edges), int(edge.sum()))]
+            valid = rng.random(rows) >= 0.01
+            cols += [vals, np.packbits(valid, bitorder="little")]
+        out[dt] = tuple(cols)
+    return out
+
+
+def _bits_valid(bitmask, n: int):
+    return np.unpackbits(bitmask, bitorder="little")[:n].astype(bool)
+
+
+def _utf8_key(s):
+    return (s is not None, b"" if s is None else s.encode("utf-8"))
+
+
+class _CatOracle:
+    """A string category written to the JAX package's semantics: keys in
+    keyset order (sorted by UTF-8 bytes, None first, until merge_category
+    appends), values int64 (-1 for a removed key)."""
+
+    def __init__(self, keys, values):
+        self.keys = list(keys)
+        self.values = np.asarray(values, np.int64)
+        self.index = {k: i for i, k in enumerate(self.keys)}
+
+    @classmethod
+    def encode(cls, rows):
+        keys = sorted(set(rows), key=_utf8_key)
+        index = {k: i for i, k in enumerate(keys)}
+        return cls(keys, np.fromiter((index[r] for r in rows), np.int64, len(rows)))
+
+    def rows(self):
+        return [None if v < 0 else self.keys[v] for v in self.values.tolist()]
+
+    def value(self, key):
+        return self.index.get(key, -1)
+
+    def bounds(self, key):
+        v = self.value(key)
+        if v >= 0:
+            return (v, v)
+        if not hasattr(self, "_sort_keys"):
+            self._sort_keys = [_utf8_key(k) for k in self.keys]
+        q = _utf8_key(key)
+        p = next((i for i, k in enumerate(self._sort_keys) if not k < q), len(self.keys))
+        return (p - 1, p)
+
+    def indexes(self, key):
+        v = self.value(key)
+        return [] if v < 0 else np.nonzero(self.values == v)[0].tolist()
+
+    def remap(self, keys):
+        index = {k: i for i, k in enumerate(keys)}
+        table = np.array([index.get(k, -1) for k in self.keys] + [-1], np.int64)
+        return table[self.values]  # -1 indexes the appended -1
+
+    def with_keys(self, keys):
+        return _CatOracle(keys, self.remap(keys))
+
+    def add_keys(self, keys):
+        return self.with_keys(sorted(set(self.keys) | set(keys), key=_utf8_key))
+
+    def remove_keys(self, keys):
+        drop = set(keys)
+        return self.with_keys([k for k in self.keys if k not in drop])
+
+    def remove_unused(self):
+        used = set(self.values[self.values >= 0].tolist())
+        return self.with_keys([k for i, k in enumerate(self.keys) if i in used])
+
+    def set_keys(self, keys):
+        return self.with_keys(sorted(set(keys), key=_utf8_key))
+
+    def merge_and_remap(self, other):
+        keys = sorted(set(self.keys) | set(other.keys), key=_utf8_key)
+        return _CatOracle(keys, np.concatenate([self.remap(keys), other.remap(keys)]))
+
+    def merge_category(self, other):
+        keys = self.keys + [k for k in other.keys if k not in self.index]
+        return _CatOracle(keys, np.concatenate([self.values, other.remap(keys)]))
+
+
+def _num_canon(x, valid: bool):
+    """A number's identity as a key: None for null, one NaN (-0.0 and 0.0
+    are one dict key already)."""
+    if not valid:
+        return None
+    x = x.item()
+    return ("nan",) if x != x else x
+
+
+class _NumOracle:
+    """A numeric category written to the JAX package's semantics with
+    numpy: rows ordered by (null first, value, NaN after +inf, -0.0 as
+    0.0), stably; a key's value is its first row's in that order, so the
+    null key holds the least value under a null."""
+
+    def __init__(self, keys, valid, values):
+        self.keys, self.valid = keys, np.asarray(valid, bool)
+        self.values = np.asarray(values, np.int64)
+        self.index = {}
+        for i, (k, ok) in enumerate(zip(keys, self.valid)):
+            self.index.setdefault(_num_canon(k, ok), i)
+
+    @classmethod
+    def encode(cls, vals, valid):
+        n = len(vals)
+        if n == 0:
+            return cls(vals[:0], valid[:0], [])
+        if vals.dtype.kind == "f":
+            nan = np.isnan(vals)
+            v = np.where(nan, 0, vals)
+            order = np.lexsort((np.arange(n), v, nan, valid))
+            same = (v[order][1:] == v[order][:-1]) & (nan[order][1:] == nan[order][:-1])
+        else:
+            order = np.lexsort((np.arange(n), vals, valid))
+            same = vals[order][1:] == vals[order][:-1]
+        sv = valid[order]
+        new = np.concatenate([[True], ~(((sv[1:] == sv[:-1]) & same) | (~sv[1:] & ~sv[:-1]))])
+        values = np.empty(n, np.int64)
+        values[order] = np.cumsum(new) - 1
+        rows = order[new]
+        return cls(vals[rows], valid[rows], values)
+
+    def value(self, key):
+        if isinstance(key, float) and key != key and self.keys.dtype.kind != "f":
+            return -1
+        return self.index.get(_num_canon(np.asarray(key, self.keys.dtype), True), -1)
+
+    def remap(self, other):
+        table = np.array([other.index.get(_num_canon(k, ok), -1) for k, ok in zip(self.keys, self.valid)]
+                         + [-1], np.int64)
+        return table[self.values]
+
+    def with_keys(self, keys, valid):
+        new = _NumOracle(keys, valid, [])
+        return _NumOracle(keys, valid, self.remap(new))
+
+    def add_keys(self, vals, isnull):
+        u = _NumOracle.encode(np.concatenate([self.keys, vals.astype(self.keys.dtype)]),
+                              np.concatenate([self.valid, ~isnull]))
+        return self.with_keys(u.keys, u.valid)
+
+    def remove_keys(self, vals, isnull):
+        drop = {self.index.get(_num_canon(v, not z), -1) for v, z in zip(vals.astype(self.keys.dtype), isnull)}
+        keep = [i for i in range(len(self.keys)) if i not in drop]
+        return self.with_keys(self.keys[keep], self.valid[keep])
+
+    def remove_unused(self):
+        keep = np.unique(self.values[self.values >= 0])
+        return self.with_keys(self.keys[keep], self.valid[keep])
+
+    def set_keys(self, vals, isnull):
+        u = _NumOracle.encode(vals.astype(self.keys.dtype), ~isnull)
+        return self.with_keys(u.keys, u.valid)
+
+    def gather(self, idx):
+        return _NumOracle(self.keys, self.valid, idx)
+
+    def merge_and_remap(self, other):
+        u = _NumOracle.encode(np.concatenate([self.keys, other.keys.astype(self.keys.dtype)]),
+                              np.concatenate([self.valid, other.valid]))
+        return _NumOracle(u.keys, u.valid, np.concatenate([self.remap(u), other.remap(u)]))
+
+    def merge_category(self, other):
+        new = [i for i, (k, ok) in enumerate(zip(other.keys, other.valid)) if _num_canon(k, ok) not in self.index]
+        keys = np.concatenate([self.keys, other.keys[new]])
+        valid = np.concatenate([self.valid, other.valid[new]])
+        merged = _NumOracle(keys, valid, [])
+        return _NumOracle(keys, valid, np.concatenate([self.values, other.remap(merged)]))
+
+
+def _category_lookups(keys, rng, n: int = CATEGORY_LOOKUPS):
+    """n keys to look up: half drawn from `keys` (the long ones, None and
+    "" first), half absent (prefixes cut, extensions, non-ASCII)."""
+    present = [None, "", _PREFIXES[0], _P256, f"{_P256} part 07"]
+    present += [keys[i] for i in rng.integers(0, len(keys), n // 2 - len(present))]
+    absent = [_PREFIXES[0][:63], _P256 + " part", _P256 + "\x00", "\U0001F600 not a key", "zzzz"]
+    absent += [keys[i] + "!" for i in rng.integers(0, len(keys), n - n // 2 - len(absent))]
+    return present + absent
+
+
+def _num_lookups(vals, dtype: str, rng, n: int = CATEGORY_LOOKUPS):
+    """n numbers to look up: edge values, drawn values and absent ones."""
+    edges = _numeric_edges(dtype).tolist()
+    drawn = vals[rng.integers(0, len(vals), n // 2)].tolist()
+    if dtype in _INT_RANGE:
+        lo, hi = _INT_RANGE[dtype]
+        absent = [int(x) for x in rng.integers(lo, hi, n - len(edges) - len(drawn), endpoint=True)]
+    else:
+        absent = [float(x) for x in rng.standard_normal(n - len(edges) - len(drawn)) * 1e3 + 0.005]
+        absent[:2] = [float("nan"), -0.0]
+    return edges + drawn + absent
+
+
+def _host_cat(c):
+    """(keys, values) of an nvcategory as host lists."""
+    return c.keys().to_host(), c.values()
+
+
+def _host_num(c):
+    """(keys, keys' validity, values) of a numeric_category as numpy."""
+    keys = c.keys(np.empty(c.keys_size(), c.keys_type()))
+    return keys, np.asarray(c._cat.keys_valid.cpu()), c.values(np.empty(c.size(), np.int32))
+
+
+def _run_category(torch, a, b, nums, device="cuda"):
+    """Every facade method of nvcategory and numeric_category: the string
+    category of rows a, with b, on CATEGORY_LOOKUPS lookups, gathers,
+    row adds and removes, the keyset algebra and both merges (and a
+    second merge_category, whose keyset is unsorted, looked up); each
+    numeric category of `nums` (make_numeric_columns) through every
+    method.  Returns (host results, per-op seconds, per-op peak device
+    memory); the CPU tests run it with device="cpu"."""
+    from custrings_tpu_torch import nvcategory, nvstrings
+
+    times, peaks, out = {}, {}, {}
+    step = _stepper(torch, times, peaks if device == "cuda" else None, cuda=device == "cuda")
+    rng = np.random.default_rng(10)
+    sa = step("to_device", lambda: nvstrings.to_device(a, device=device))
+    sb = nvstrings.to_device(b, device=device)
+    cat = step("from_strings", lambda: nvcategory.from_strings(sa))
+    out["from_strings"] = _host_cat(cat)
+    out["sizes"] = (cat.size(), cat.keys_size(), cat.keys_type(), cat.has_nulls(), cat.get_cpointer(),
+                    cat.values_cpointer() == cat._cat.values.data_ptr())
+    keys = out["from_strings"][0]
+    look = _category_lookups([k for k in keys if k is not None], rng)
+    out["lookups"] = look
+    catb = step("from_strings(b)", lambda: nvcategory.from_strings(sb))
+    out["from_strings(b)"] = _host_cat(catb)
+    out["from_strings_list"] = _host_cat(step("from_strings_list", lambda: nvcategory.from_strings_list([sa, sb])))
+    out["to_strings"] = step("to_strings", cat.to_strings).to_host()
+    out["value"] = step("value", lambda: [cat.value(k) for k in look])
+    out["get_value_bounds"] = step("get_value_bounds", lambda: [cat.get_value_bounds(k) for k in look])
+    out["indexes_for_key"] = step("indexes_for_key", lambda: [cat.indexes_for_key(k) for k in look[:8] + look[-2:]])
+    rows = rng.integers(0, len(a), 100)
+    out["value_for_index"] = (rows.tolist(), [cat.value_for_index(int(i)) for i in rows])
+    K = cat.keys_size()
+    gidx = rng.integers(0, K, len(a)).astype(np.int32)
+    sidx = gidx[:4096]
+    out["gather_idx"] = (gidx, sidx)
+    out["gather_strings"] = step("gather_strings", lambda: cat.gather_strings(sidx)).to_host()
+    out["gather"] = _host_cat(step("gather", lambda: cat.gather(gidx)))
+    out["gather_and_remap"] = _host_cat(step("gather_and_remap", lambda: cat.gather_and_remap(sidx)))
+    out["add_strings"] = _host_cat(step("add_strings", lambda: cat.add_strings(sb)))
+    drop = look[:10] + look[-10:]
+    out["remove_strings"] = _host_cat(step("remove_strings",
+                                           lambda: cat.remove_strings(nvstrings.to_device(drop, device=device))))
+    new_keys = [k for k in b[:20000] if k is not None][:2000] + look[-50:]
+    out["add_keys"] = _host_cat(step("add_keys", lambda: cat.add_keys(new_keys)))
+    gone = keys[: K // 3] + look[-5:]
+    out["remove_keys"] = _host_cat(step("remove_keys", lambda: cat.remove_keys(gone)))
+    kept = keys[K // 2:] + new_keys
+    sk = step("set_keys", lambda: cat.set_keys(nvstrings.to_device(kept, device=device)))
+    out["set_keys"] = _host_cat(sk)
+    out["remove_unused_keys"] = _host_cat(step("remove_unused_keys", sk.remove_unused_keys))
+    merged = step("merge_category", lambda: cat.merge_category(catb))
+    out["merge_category"] = _host_cat(merged)
+    catc = nvcategory.from_strings(nvstrings.to_device(look + new_keys[:100], device=device))
+    merged2 = step("merge_category(unsorted)", lambda: merged.merge_category(catc))
+    out["merge_category(unsorted)"] = _host_cat(merged2)
+    out["unsorted lookups"] = step("unsorted lookups", lambda: (
+        [merged2.value(k) for k in look], [merged2.get_value_bounds(k) for k in look],
+        [merged2.indexes_for_key(k) for k in look[-12:]]))
+    out["merge_and_remap"] = _host_cat(step("merge_and_remap", lambda: cat.merge_and_remap(catb)))
+    del sa, sb, cat, catb, sk, merged, merged2, catc
+    for dt, (va, ma, vb, mb) in nums.items():
+        res = out[f"numeric {dt}"] = {}
+        nc = step(f"from_numbers({dt})", lambda va=va, ma=ma: nvcategory.from_numbers(va, ma, device=device))
+        ncb = nvcategory.from_numbers(vb, mb, device=device)
+        res["from_numbers"] = _host_num(nc)
+        res["from_numbers(b)"] = _host_num(ncb)
+        res["sizes"] = (nc.size(), nc.keys_size(), nc.keys_type())
+        nl = _num_lookups(va, dt, rng)
+        res["lookups"] = nl
+        res["value"] = step(f"value({dt})", lambda nc=nc, nl=nl: [nc.value(k) for k in nl])
+        res["indexes_for_key"] = step(f"indexes_for_key({dt})", lambda nc=nc, nl=nl: (
+            [nc.indexes_for_key(k) for k in nl],
+            [nc.indexes_for_key(k, np.empty(len(va), np.int32))
+             for k in nl[:2]]))
+        nrows = rng.integers(0, len(va), 100)
+        res["value_for_index"] = (nrows.tolist(), [nc.value_for_index(int(i)) for i in nrows])
+        res["to_numbers"] = step(f"to_numbers({dt})", lambda nc=nc: nc.to_numbers(np.empty(len(va), va.dtype)))
+        kidx = rng.integers(0, nc.keys_size(), 4096).astype(np.int32)
+        gidx = rng.integers(0, nc.keys_size(), len(va)).astype(np.int32)
+        res["idx"] = (kidx, gidx)
+        res["gather_numbers"] = np.asarray(nc.gather_numbers(kidx, np.empty(len(kidx), va.dtype)))
+        extra = np.concatenate([vb[:64], _numeric_edges(dt)])
+        extra_null = np.arange(len(extra)) % 7 == 0
+        res["keys_args"] = (extra, extra_null)
+        res["add_keys"] = _host_num(step(f"add_keys({dt})", lambda nc=nc: nc.add_keys(extra, extra_null)))
+        res["remove_keys"] = _host_num(step(f"remove_keys({dt})", lambda nc=nc: nc.remove_keys(extra, extra_null)))
+        sk = step(f"set_keys({dt})", lambda nc=nc: nc.set_keys(extra, extra_null))
+        res["set_keys"] = _host_num(sk)
+        res["remove_unused_keys"] = _host_num(step(f"remove_unused_keys({dt})", sk.remove_unused_keys))
+        res["gather"] = _host_num(step(f"gather({dt})", lambda nc=nc, gidx=gidx: nc.gather(gidx)))
+        res["gather_and_remap"] = _host_num(step(f"gather_and_remap({dt})",
+                                                 lambda nc=nc, kidx=kidx: nc.gather_and_remap(kidx)))
+        res["merge_category"] = _host_num(step(f"merge_category({dt})", lambda nc=nc, ncb=ncb: nc.merge_category(ncb)))
+        res["merge_and_remap"] = _host_num(step(f"merge_and_remap({dt})",
+                                                lambda nc=nc, ncb=ncb: nc.merge_and_remap(ncb)))
+        del nc, ncb, sk
+    return out, times, peaks
+
+
+def _cat_bad(got, want: _CatOracle) -> int:
+    keys, values = got
+    return _mismatches(keys, want.keys) + _mismatches(values, want.values.tolist())
+
+
+def _num_bad(got, want: _NumOracle) -> int:
+    """Rows of keys (bitwise), keys' validity and values that differ."""
+    keys, valid, values = got
+    if keys.dtype != want.keys.dtype or len(keys) != len(want.keys):
+        return max(len(keys), len(want.keys), 1) + abs(len(values) - len(want.values))
+    w = keys.dtype.itemsize
+    kb = (keys.view(np.uint8).reshape(-1, w) != want.keys.view(np.uint8).reshape(-1, w)).any(axis=1)
+    return int(kb.sum()) + int((valid != want.valid).sum()) + _mismatches(values.tolist(), want.values.tolist())
+
+
+def _bits_bad(got, want) -> int:
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return max(got.size, want.size, 1)
+    return int((got.view(np.uint8) != want.view(np.uint8)).reshape(len(got), -1).any(axis=1).sum())
+
+
+def _check_category(a, b, nums, res):
+    """{check: rows that differ from the oracles}, every row of every
+    result (numeric keys bitwise)."""
+    bad = {}
+    ca, cb = _CatOracle.encode(a), _CatOracle.encode(b)
+    look = res["lookups"]
+    bad["from_strings"] = _cat_bad(res["from_strings"], ca)
+    bad["sizes"] = int(res["sizes"] != (len(a), len(ca.keys), "str", None in ca.index, 0, True))
+    bad["from_strings(b)"] = _cat_bad(res["from_strings(b)"], cb)
+    bad["from_strings_list"] = _cat_bad(res["from_strings_list"], _CatOracle.encode(a + b))
+    bad["to_strings"] = _mismatches(res["to_strings"], a)
+    bad["value"] = _mismatches(res["value"], [ca.value(k) for k in look])
+    bad["get_value_bounds"] = _mismatches(res["get_value_bounds"], [ca.bounds(k) for k in look])
+    bad["indexes_for_key"] = _mismatches(res["indexes_for_key"], [ca.indexes(k) for k in look[:8] + look[-2:]])
+    rows, vals = res["value_for_index"]
+    bad["value_for_index"] = _mismatches(vals, [int(ca.values[i]) for i in rows])
+    gidx, sidx = res["gather_idx"]
+    bad["gather_strings"] = _mismatches(res["gather_strings"], [ca.keys[i] for i in sidx.tolist()])
+    bad["gather"] = _cat_bad(res["gather"], _CatOracle(ca.keys, gidx))
+    bad["gather_and_remap"] = _cat_bad(res["gather_and_remap"], _CatOracle(ca.keys, sidx).remove_unused())
+    bad["add_strings"] = _cat_bad(res["add_strings"], _CatOracle.encode(a + b))
+    drop = set(look[:10] + look[-10:])
+    bad["remove_strings"] = _cat_bad(res["remove_strings"], _CatOracle.encode([r for r in a if r not in drop]))
+    new_keys = [k for k in b[:20000] if k is not None][:2000] + look[-50:]
+    bad["add_keys"] = _cat_bad(res["add_keys"], ca.add_keys(new_keys))
+    K = len(ca.keys)
+    bad["remove_keys"] = _cat_bad(res["remove_keys"], ca.remove_keys(ca.keys[: K // 3] + look[-5:]))
+    sk = ca.set_keys(ca.keys[K // 2:] + new_keys)
+    bad["set_keys"] = _cat_bad(res["set_keys"], sk)
+    bad["remove_unused_keys"] = _cat_bad(res["remove_unused_keys"], sk.remove_unused())
+    merged = ca.merge_category(cb)
+    bad["merge_category"] = _cat_bad(res["merge_category"], merged)
+    merged2 = merged.merge_category(_CatOracle.encode(look + new_keys[:100]))
+    bad["merge_category(unsorted)"] = _cat_bad(res["merge_category(unsorted)"], merged2)
+    values, bounds, idxs = res["unsorted lookups"]
+    bad["unsorted lookups"] = (_mismatches(values, [merged2.value(k) for k in look])
+                               + _mismatches(bounds, [merged2.bounds(k) for k in look])
+                               + _mismatches(idxs, [merged2.indexes(k) for k in look[-12:]]))
+    bad["merge_and_remap"] = _cat_bad(res["merge_and_remap"], ca.merge_and_remap(cb))
+    for dt, (va, ma, vb, mb) in nums.items():
+        r, p = res[f"numeric {dt}"], f"{dt} "
+        na = _NumOracle.encode(va, _bits_valid(ma, len(va)))
+        nb = _NumOracle.encode(vb, _bits_valid(mb, len(vb)))
+        bad[p + "from_numbers"] = _num_bad(r["from_numbers"], na)
+        bad[p + "from_numbers(b)"] = _num_bad(r["from_numbers(b)"], nb)
+        bad[p + "sizes"] = int(r["sizes"] != (len(va), len(na.keys), dt))
+        nl = r["lookups"]
+        want_v = [na.value(k) for k in nl]
+        bad[p + "value"] = _mismatches(r["value"], want_v)
+        counts, filled = r["indexes_for_key"]
+        bad[p + "indexes_for_key"] = (_mismatches(counts, [int((na.values == v).sum()) for v in want_v])
+                                      + _mismatches(filled, counts[:2]))
+        nrows, nvals = r["value_for_index"]
+        bad[p + "value_for_index"] = _mismatches(nvals, [int(na.values[i]) for i in nrows])
+        want_n = np.where(na.values >= 0, na.keys[na.values.clip(0)], 0).astype(va.dtype)
+        bad[p + "to_numbers"] = _bits_bad(r["to_numbers"], want_n)
+        kidx, gidx = r["idx"]
+        bad[p + "gather_numbers"] = _bits_bad(r["gather_numbers"], na.keys[kidx])
+        extra, extra_null = r["keys_args"]
+        bad[p + "add_keys"] = _num_bad(r["add_keys"], na.add_keys(extra, extra_null))
+        bad[p + "remove_keys"] = _num_bad(r["remove_keys"], na.remove_keys(extra, extra_null))
+        sk = na.set_keys(extra, extra_null)
+        bad[p + "set_keys"] = _num_bad(r["set_keys"], sk)
+        bad[p + "remove_unused_keys"] = _num_bad(r["remove_unused_keys"], sk.remove_unused())
+        bad[p + "gather"] = _num_bad(r["gather"], na.gather(gidx))
+        bad[p + "gather_and_remap"] = _num_bad(r["gather_and_remap"], na.gather(kidx).remove_unused())
+        bad[p + "merge_category"] = _num_bad(r["merge_category"], na.merge_category(nb))
+        bad[p + "merge_and_remap"] = _num_bad(r["merge_and_remap"], na.merge_and_remap(nb))
+    return bad
+
+
+def _category_kernel_shapes(torch, a, nums, device="cuda"):
+    """K1b and K3 at the category path's own calls, captured by wrapping
+    the names their callers look up, each with its own bound:
+    searchsorted_keys' key words as remove_strings passes it the dropped
+    keys and the category's 1M rows (K1b, the keys' and the queries'),
+    and from_numbers' rank scan of the float64 column (K3).  Returns
+    [(name, source, replaces, shapes)]; the CPU tests run it with
+    device="cpu"."""
+    from custrings_tpu_torch import category, column, numeric
+    from custrings_tpu_torch.ops import array, scan, segments, unique, window
+
+    col = column.from_host_strings(a, device)
+    cat = category.from_strings(col)
+    drop = column.from_host_strings(a[:64] + [None, "zzzz"], device)
+    with _Calls((unique, "searchsorted_keys")) as lookups:
+        category.remove_strings(cat, drop)
+    if len(lookups.calls) != 1:
+        raise AssertionError(f"remove_strings made {len(lookups.calls)} searchsorted_keys calls (want one)")
+    with _Calls((array, "ragged_gather_words")) as k1b:
+        unique.searchsorted_keys(*lookups.calls[0][1])
+    va, ma = nums["float64"][:2]
+    with _Calls((segments, "cumsum")) as k3:
+        numeric.from_numbers(va, ~_bits_valid(ma, len(va)), device=device)
+    if len(k1b.calls) != 2 or len(k3.calls) != 1:
+        raise AssertionError(f"category path calls not captured: K1b {len(k1b.calls)} (want 2), "
+                             f"K3 {len(k3.calls)} (want 1)")
+    del col, cat, drop, lookups
+
+    def words(label, data, st, w):
+        rows, wq = st.shape[0], -(-w // 4)
+        return (f"i32[{rows},{wq}] searchsorted_keys' {label}, width {w}",
+                lambda: window.ragged_gather_words(data, st, w),
+                lambda: _chunked(torch, lambda i, j: window._words_plain(data, st[i:j], w), rows, 4 * wq),
+                {"bound": _words_bound(torch, data, st, w)})
+
+    (neq,) = k3.calls[0][1]
+    n = neq.shape[0]
+    rank = (f"bool[{n}] -> i32[{n}] from_numbers' rank scan (float64)", lambda: scan.cumsum_i32(neq),
+            lambda: scan._cumsum_plain(neq),
+            {"bound": (5 * n, n), "library": lambda: torch.cumsum(neq, 0, dtype=torch.int32)})
+    return [("window_words", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170",
+             [words(label, *call[1]) for label, call in reversed(list(zip(("keys' words", "queries' words"),
+                                                                          k1b.calls)))]),
+            ("scan_sum", "csrc/scan.cu", "custrings_tpu/ops/pallas_scan.py:235", [rank])]
+
+
+def _traced_slice(torch, strs, device="cuda"):
+    """The slice's three ops (contains, replace, dictionary encode) through
+    the facades once untraced and once with tracing enabled: (the traced
+    ops' report rows {name: (calls, seconds, bytes)}, whether the results
+    are identical)."""
+    from custrings_tpu_torch import nvcategory, nvstrings
+    from custrings_tpu_torch.utils import tracing
+
+    def run():
+        s = nvstrings.to_device(strs, device=device)
+        hits = s.contains(PATTERN)
+        r = s.replace("the", "THE", regex=False)
+        cat = nvcategory.from_strings(r)
+        return hits, r.to_host(), cat.keys().to_host(), cat.values()
+
+    plain = run()
+    tracing.reset()
+    with tracing.enabled():
+        traced = run()
+    rows = {}
+    for line in tracing.report().splitlines()[1:]:
+        name, calls, secs, _, _ = line.split()
+        rows[name] = (int(calls), float(secs), tracing._records[name][2])
+    tracing.reset()
+    return rows, plain == traced
+
+
+TRACED_OPS = ("regex.contains_re", "modify.replace_literal", "unique.dictionary_encode")
+
+
 def _driven(torch, kernels, run, strs):
     """Run one path with every launch counter set to 0 just before it and
     read just after; returns (run's result, the counters)."""
@@ -2761,6 +3343,7 @@ COMPACT_KERNELS = ("compact_bytes",)
 TEXT_KERNELS = ("scan_sum", "route_compact", "window_bytes", "window_words")
 CLEAN_KERNELS = ("scan_sum", "route_compact", "route_expand", "window_bytes", "window_words")
 CONVERT_KERNELS = ("scan_sum", "scan_max", "window_bytes", "window_words", "route_expand", "compact_bytes")
+CATEGORY_KERNELS = ("scan_sum", "window_words")
 
 
 def main() -> int:
@@ -2975,15 +3558,56 @@ def main() -> int:
     del url_strs, float_strs
     torch.cuda.empty_cache()
 
+    # the category path: a categorical column, a second sharing half its
+    # keys, and numeric columns of the five key types, through every
+    # method of nvcategory and numeric_category
+    t_cat = time.perf_counter()
+    cat_a, cat_b, _ = make_category_rows(ROWS, seed=8, b_rows=ROWS // 4)
+    nums = make_numeric_columns(ROWS, seed=9, b_rows=ROWS // 4)
+    data_s = time.perf_counter() - t_cat
+    _run_category(torch, cat_a[:4096], cat_b[:4096],
+                  {dt: (v[:4096], m[:512], vb[:4096], mb[:512]) for dt, (v, m, vb, mb) in nums.items()})
+    torch.cuda.empty_cache()
+    (gres, gtimes, gpeaks), category_launches = _driven(
+        torch, kernels, lambda torch, _: _run_category(torch, cat_a, cat_b, nums), None)
+    t_check = time.perf_counter()
+    gbad = _check_category(cat_a, cat_b, nums, gres)
+    _emit({"phase": "category", "rows": ROWS, "b_rows": len(cat_b), "keys": len(gres["from_strings"][0]),
+           "numeric_keys": {dt: len(gres[f"numeric {dt}"]["from_numbers"][0])
+                                                          for dt in nums},
+           "ms": {k: v * 1e3 for k, v in gtimes.items()}, "max_memory_allocated": max(gpeaks.values()),
+           "max_memory_allocated_by_op": gpeaks, "data_seconds": data_s,
+           "oracle_seconds": time.perf_counter() - t_check, "phase_seconds": time.perf_counter() - t_cat,
+           "script_seconds_before_phase": t_cat - t_main, "mismatches": gbad})
+    if any(gbad.values()):
+        raise AssertionError(f"category ops disagree with their oracles: {gbad}")
+    del gres
+    torch.cuda.empty_cache()
+    category_cases = [(name, src, rep, shapes, shapes[0][3]["bound"], shapes[0][3].get("library"))
+                      for name, src, rep, shapes in _category_kernel_shapes(torch, cat_a, nums)]
+    for t in _measure(torch, category_cases, slow=("window_words",), phase="kernel_category"):
+        by_name[t["name"]]["shapes"] += t["shapes"]
+        by_name[t["name"]]["max_abs_err"] = max(by_name[t["name"]]["max_abs_err"], t["max_abs_err"])
+    del cat_a, cat_b, nums
+    torch.cuda.empty_cache()
+
+    # tracing: the slice's three ops once with the wrappers active
+    trace_rows, same = _traced_slice(torch, strs[:65536])
+    _emit({"phase": "tracing", "rows": 65536, "report": trace_rows, "results_identical": same})
+    short = [op for op in TRACED_OPS if op not in trace_rows or trace_rows[op][0] < 1 or trace_rows[op][2] <= 0]
+    if short or not same:
+        raise AssertionError(f"tracing: ops without a calls >= 1, bytes > 0 row {short}, identical {same}")
+
     paths = {"slice": slice_launches, "spans": span_launches, "matchers": matcher_launches,
              "hash": hash_launches, "compact": compact_launches, "text": text_launches,
-             "clean": clean_launches, "convert": convert_launches}
+             "clean": clean_launches, "convert": convert_launches, "category": category_launches}
     _emit({"phase": "launches", **paths})
     missing = []
     for path_name, need in (("slice", SLICE_KERNELS), ("spans", SPAN_KERNELS),
                             ("matchers", MATCHER_KERNELS), ("hash", HASH_KERNELS),
                             ("compact", COMPACT_KERNELS), ("text", TEXT_KERNELS),
-                            ("clean", CLEAN_KERNELS), ("convert", CONVERT_KERNELS)):
+                            ("clean", CLEAN_KERNELS), ("convert", CONVERT_KERNELS),
+                            ("category", CATEGORY_KERNELS)):
         missing += [f"{path_name}: {k}" for k in need if paths[path_name][k] <= 0]
     if missing:
         raise AssertionError(f"kernels their path never launched: {missing}")

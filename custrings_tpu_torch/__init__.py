@@ -8,10 +8,46 @@ take each kernel's plain PyTorch version.  This package imports neither
 JAX nor `custrings_tpu`.
 
 Public modules:
-    custrings_tpu_torch.nvstrings   to_device / contains / replace / to_host
-    custrings_tpu_torch.nvcategory  from_strings / keys / values
+    custrings_tpu_torch.nvstrings   vectorized string ops
+    custrings_tpu_torch.nvcategory  string and numeric dictionary encoding
+    custrings_tpu_torch.nvtext      token-level utilities
+    custrings_tpu_torch.utils       CSV ingest, column statistics, per-op tracing
 """
 
 from .column import StringColumn  # noqa: F401
 
 __version__ = "0.1.0"
+
+
+def _instrument():
+    """Wrap the public ops of the op modules with utils.tracing.traced, as
+    custrings_tpu does, so that tracing measures the op layer."""
+    import importlib
+
+    from .utils import tracing
+
+    for modname, prefix in [
+        ("ops.array", "array"),
+        ("ops.attrs", "attrs"),
+        ("ops.case", "case"),
+        ("ops.combine", "combine"),
+        ("ops.convert", "convert"),
+        ("ops.datetime_k", "datetime"),
+        ("ops.find", "find"),
+        ("ops.modify", "modify"),
+        ("ops.pad", "pad"),
+        ("ops.split", "split"),
+        ("ops.strip", "strip"),
+        ("ops.substr", "substr"),
+        ("ops.unique", "unique"),
+        ("ops.urlencode", "urlencode"),
+        ("regex.ops", "regex"),
+        ("text.token", "text"),
+        ("text.distance", "text"),
+        ("text.ngram", "text"),
+    ]:
+        mod = importlib.import_module(f".{modname}", __name__)
+        tracing.instrument_module(mod, prefix)
+
+
+_instrument()

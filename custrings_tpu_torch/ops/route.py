@@ -26,7 +26,7 @@ DMA-alignment parameters (`tile`, `align`) are TPU workarounds and are
 not ported either, nor is `scatter_sorted`, the TPU's stand-in for a
 scatter: `cover_spans` places its span bounds with an indexed add.
 `stream_expand_spans` comes with the regex ops that call it (ROADMAP
-queue 1, item 4).
+queue 1, item 2).
 """
 
 from __future__ import annotations

@@ -17,6 +17,10 @@ longer than the prefix is checked exactly on the tails (K1b); only tails
 that really differ make the column ambiguous, and then the prefix grows
 64 -> 256 -> full width and the encode runs again.  Hash words are uint32
 arithmetic carried in int64 and masked to 32 bits.
+
+The keyset lookups `searchsorted_keys` and `first_not_less` compare key
+words (K1b) at the larger row width of the keys and the queries: null
+first, then bytewise, then length.
 """
 
 from __future__ import annotations
@@ -244,3 +248,60 @@ def dictionary_encode(col: StringColumn):
 def unique_strings(col: StringColumn) -> StringColumn:
     """The column's sorted unique rows (null first, where there is one)."""
     return dictionary_encode(col)[0]
+
+
+def _lookup_words(keys: StringColumn, queries: StringColumn):
+    """Key words of both columns at their larger row width rounded up to 4
+    (K1b), as int64 holding the unsigned words so that compares are
+    bytewise."""
+    width = max(layout.max_row_bytes(keys), layout.max_row_bytes(queries), 1)
+    width = -(-width // 4) * 4
+    return u32_key(array._key_words(keys, width)), u32_key(array._key_words(queries, width))
+
+
+def _key_less(kw, klen, kval, qw, qlen, qval):
+    """Is each key < its query?  Null sorts first; otherwise the first
+    differing word decides, and the length where the words agree."""
+    neq = kw != qw
+    first = neq.to(torch.int8).argmax(dim=1, keepdim=True)
+    words_less = torch.where(neq.any(dim=1), kw.gather(1, first)[:, 0] < qw.gather(1, first)[:, 0], klen < qlen)
+    return torch.where(~kval | ~qval, ~kval & qval, words_less)
+
+
+def searchsorted_keys(keys: StringColumn, queries: StringColumn) -> torch.Tensor:
+    """int32[queries]: for each query row, the index of the equal key in
+    the sorted keyset, or -1 (a null query matches the null key).  One
+    bisection over all queries at once: K.bit_length() steps, each
+    gathering the [Q, W] key words at the midpoints."""
+    K, Q, dev = keys.size, queries.size, queries.device
+    if K == 0 or Q == 0:
+        return torch.full((Q,), -1, dtype=torch.int32, device=dev)
+    kw, qw = _lookup_words(keys, queries)
+    klen, qlen = keys.lengths(), queries.lengths()
+    kval, qval = keys.validity, queries.validity
+    lo = torch.zeros(Q, dtype=torch.int64, device=dev)
+    hi = torch.full((Q,), K, dtype=torch.int64, device=dev)
+    for _ in range(K.bit_length()):
+        active = lo < hi
+        mid = torch.div(lo + hi, 2, rounding_mode="floor").clamp(max=K - 1)
+        less = _key_less(kw[mid], klen[mid], kval[mid], qw, qlen, qval) & active
+        lo = torch.where(less, mid + 1, lo)
+        hi = torch.where(active & ~less, mid, hi)
+    at = lo.clamp(max=K - 1)
+    same = (kw[at] == qw).all(dim=1) & (klen[at] == qlen)
+    eq = torch.where(~kval[at] | ~qval, ~kval[at] & ~qval, same)
+    return torch.where((lo < K) & eq, lo, -1).to(torch.int32)
+
+
+def first_not_less(keys: StringColumn, query: StringColumn) -> torch.Tensor:
+    """int32 scalar: the first key position p with NOT (keys[p] < query[0]),
+    or K where there is none; exact for any keyset order (one compare of
+    every key against the query)."""
+    K = keys.size
+    if K == 0:
+        return torch.zeros((), dtype=torch.int32, device=keys.device)
+    kw, qw = _lookup_words(keys, query)
+    less = _key_less(kw, keys.lengths(), keys.validity, qw[:1].expand(K, -1),
+                     query.lengths()[:1], query.validity[:1])
+    not_less = ~less
+    return torch.where(not_less.any(), not_less.to(torch.int8).argmax(), K).to(torch.int32)

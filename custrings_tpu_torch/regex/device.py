@@ -474,7 +474,7 @@ class DeviceProgram:
                 why = f"has {self.I} instructions (the bit span passes take at most 32)"
             raise NotImplementedError(
                 f"the span program {why}: it needs {need}, "
-                "which is not ported yet (ROADMAP queue 1, item 4)"
+                "which is not ported yet (ROADMAP queue 1, item 2)"
             )
         return sb
 

@@ -20,7 +20,7 @@ table budget takes K2b (`nfa_words`), and any other the vector engine
 
 Not ported yet: span programs that are not certified (`longest_safe` or
 `end_unique`) or over 32 instructions (the min-plus, ordered and DFS span
-engines, ROADMAP queue 1, item 4); `extract`, `replace_multi_re` and
+engines, ROADMAP queue 1, item 2); `extract`, `replace_multi_re` and
 `replace_with_backrefs`.  These raise NotImplementedError.
 """
 

@@ -1,1 +1,2 @@
-"""Host-side utilities of the port: CSV ingest and column statistics."""
+"""Host-side utilities of the port: CSV ingest, column statistics and
+per-op tracing."""

@@ -8,6 +8,7 @@
     python3 profile_slice.py --ops text    # the per-op rows of the text ops
     python3 profile_slice.py --ops clean   # the per-op rows of the clean ops
     python3 profile_slice.py --ops convert # the per-op rows of the conversion ops
+    python3 profile_slice.py --ops category  # the per-op rows of the category ops
 
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
 "THE"), dictionary_encode, the growing and shrinking replace_literal
@@ -26,7 +27,11 @@ chip_smoke.make_clean_rows() of those rows, each op of chip_smoke.py's
 convert phase at the op level (the parsers, the formatters on the
 parsers' results, url_encode, url_decode of its output and of the url
 rows, get_info) on the columns of chip_smoke.make_convert_rows() as
-from_csv reads them, and for each matcher of the
+from_csv reads them, each category op of chip_smoke.py's category phase
+at the op level (category.py's build, lookups, gathers, row edits, keyset
+algebra and merges on chip_smoke.make_category_rows(), numeric.py's
+build and merge_and_remap at each key type of
+chip_smoke.make_numeric_columns()), and for each matcher of the
 matchers phase (contains_re of ERR, ISO and MONTH on the 2^20 log rows of
 chip_smoke.make_logs(), of BIG on their first 65,536, of ERR on the 2,048
 long rows): the wall time without the profiler, and under torch.profiler
@@ -53,7 +58,7 @@ naming the package's directory.
 
 `--ops a,b,...` runs the per-op rows of the named ops alone (names as in
 the op table in main(); `text` names every text op, `clean` every clean
-op, `convert` every conversion op); they call only the package's entry points, so an earlier tree's
+op, `convert` every conversion op, `category` every category op); they call only the package's entry points, so an earlier tree's
 package is profiled the same way.  The kernels' own
 times at the main path's calls are chip_smoke.py's kernel phase.
 """
@@ -63,6 +68,8 @@ from __future__ import annotations
 import json
 import sys
 import time
+
+import numpy as np
 
 import chip_smoke as cs
 
@@ -127,7 +134,7 @@ def main() -> int:
         all_spans_part(torch, cs.make_corpus(cs.ROWS, seed=0))
         print(cs._nvidia_smi(), flush=True)
         return 0
-    from custrings_tpu_torch import column
+    from custrings_tpu_torch import category, column, numeric
     from custrings_tpu_torch.ops import (array, attrs, case, combine, compact, convert, datetime_k, find,
                                          format_k, hash, layout, modify, pad, split, strip, substr, unique,
                                          urlencode)
@@ -250,13 +257,60 @@ def main() -> int:
         "url_decode": ("conv url", lambda c: urlencode.url_decode(c)),
         "get_info": ("conv int", lambda c: stats.compute_statistics(c)),
     }
+    def cat_of(key):  # a category of a category column, made once
+        if f"category {key}" not in cols:
+            cols[f"category {key}"] = (category.from_strings(made(key)) if key.startswith("cat ")
+                                       else numeric.from_numbers(*corpora[key], device="cuda"))
+        return cols[f"category {key}"]
+
+    def cat_args(key):  # the key lists and indexes the category ops take, made once from the first category
+        if key not in cols:
+            keys = column.to_host_strings(cat_of("cat a").keys)
+            K = len(keys)
+            rng = np.random.default_rng(10)
+            new = [k for k in corpora["cat b"][:20000] if k is not None][:2000]
+            cols.update({"lookups": cs._category_lookups([k for k in keys if k is not None], rng),
+                         "gidx": rng.integers(0, K, len(corpora["cat a"])).astype(np.int32),
+                         "new keys": column.from_host_strings(new, "cuda"),
+                         "gone keys": column.from_host_strings(keys[: K // 3], "cuda"),
+                         "kept keys": column.from_host_strings(keys[K // 2:] + new, "cuda"),
+                         "dropped rows": column.from_host_strings(keys[:20], "cuda")})
+        return cols[key]
+
+    category_ops = {
+        "cat from_strings": ("cat a", lambda c: category.from_strings(c)),
+        "cat from_strings(a, b)": ("cat a", lambda c: category.from_strings(c, made("cat b"))),
+        "cat to_strings": ("cat a", lambda c: category.to_strings(cat_of("cat a"))),
+        "cat value x100": ("cat a", lambda c: [category.value_of(cat_of("cat a"), k) for k in cat_args("lookups")]),
+        "cat get_value_bounds x100": ("cat a", lambda c: [category.get_value_bounds(cat_of("cat a"), k)
+                                                          for k in cat_args("lookups")]),
+        "cat indexes_for_key x10": ("cat a", lambda c: [category.indexes_for_key(cat_of("cat a"), k)
+                                                        for k in cat_args("lookups")[:10]]),
+        "cat gather": ("cat a", lambda c: category.gather(cat_of("cat a"), cat_args("gidx"))),
+        "cat gather_and_remap": ("cat a", lambda c: category.gather_and_remap(cat_of("cat a"),
+                                                                               cat_args("gidx")[:4096])),
+        "cat add_strings": ("cat a", lambda c: category.add_strings(cat_of("cat a"), made("cat b"))),
+        "cat remove_strings": ("cat a", lambda c: category.remove_strings(cat_of("cat a"), cat_args("dropped rows"))),
+        "cat add_keys": ("cat a", lambda c: category.add_keys(cat_of("cat a"), cat_args("new keys"))),
+        "cat remove_keys": ("cat a", lambda c: category.remove_keys(cat_of("cat a"), cat_args("gone keys"))),
+        "cat set_keys": ("cat a", lambda c: category.set_keys(cat_of("cat a"), cat_args("kept keys"))),
+        "cat remove_unused_keys": ("cat a", lambda c: category.remove_unused_keys(
+            category.gather(cat_of("cat a"), cat_args("gidx")[:4096]))),
+        "cat merge_category": ("cat a", lambda c: category.merge_category(cat_of("cat a"), cat_of("cat b"))),
+        "cat merge_and_remap": ("cat a", lambda c: category.merge_and_remap(cat_of("cat a"), cat_of("cat b"))),
+        **{f"num from_numbers({dt})": ("cat a", lambda c, dt=dt: numeric.from_numbers(*corpora[f"num {dt}"], device="cuda"))
+           for dt in cs.NUMERIC_DTYPES},
+        **{f"num merge_and_remap({dt})": ("cat a", lambda c, dt=dt: numeric.merge_and_remap(
+            cat_of(f"num {dt}"), cat_of(f"num {dt} b"))) for dt in cs.NUMERIC_DTYPES},
+    }
     ops.update(text_ops)
     ops.update(clean_ops)
     ops.update(convert_ops)
+    ops.update(category_ops)
     if matchers:
         ops = {k: v for k, v in ops.items() if k == "contains_re" or k.endswith("(K2b)")}
     if only is not None:
-        groups = {"text": text_ops, "clean": clean_ops, "convert": convert_ops}
+        groups = {"text": text_ops, "clean": clean_ops, "convert": convert_ops, "category": category_ops}
         only = [k for name in only for k in groups.get(name, [name])]
         unknown = set(only) - set(ops)
         if unknown:
@@ -296,6 +350,13 @@ def main() -> int:
         table = cs.read_back_py(cs.make_convert_rows(cs.ROWS, seed=7))
         corpora.update({f"conv {k}": v for k, v in table.items()})
         corpora["conv url encoded"] = [None if x is None else urllib.parse.quote(x, safe="") for x in table["url"]]
+
+    if "cat a" in srcs:
+        cat_a, cat_b, _ = cs.make_category_rows(cs.ROWS, seed=8, b_rows=cs.ROWS // 4)
+        corpora.update({"cat a": cat_a, "cat b": cat_b})
+        for dt, (va, ma, vb, mb) in cs.make_numeric_columns(cs.ROWS, seed=9, b_rows=cs.ROWS // 4).items():
+            corpora[f"num {dt}"] = (va, ~cs._bits_valid(ma, len(va)))
+            corpora[f"num {dt} b"] = (vb, ~cs._bits_valid(mb, len(vb)))
 
     def fresh(src="tweets"):
         return column.from_host_strings(corpora[src], "cuda")
