@@ -146,10 +146,26 @@ Phases, each printing one JSON line:
                remove_strings calls it) and K3 at from_numbers' rank
                scan (captured); each against its plain version, exactly,
                with its own bound
+ 11. regex   — the tweet rows through the facade's regex methods on the
+               span engines with capture groups: extract((\w+)@(\w+)),
+               replace_with_backrefs of it with "\2 at \1" and with a \0
+               template, replace_multi of URLs, mentions and hashtags,
+               count and findall_record of URLs; replace of IPv4
+               addresses in the first 2^18 log rows; extract_record of the
+               addresses on the first 2^16 rows and an eight-word extract
+               (40 instructions, the min-plus engine) on them; the count
+               of #\w{1,70}\b (142 instructions, the per-row DFS) on the
+               first 4,096; every row against Python re (the reference's
+               \b written as a change of IS_ALPHANUM)
+     kernel_regex — K4e, K4c and K5 at the regex path's own calls
+               (captured): replace_with_backrefs' gap expansion and
+               stream_expand_spans' expansion, the gap compaction,
+               extract's first-match call; each against its plain version,
+               exactly, with its own bound
      tracing — the slice's three ops with utils.tracing enabled: a
                report row each with calls >= 1 and bytes > 0, results
                identical to the untraced run
- 11. launches — each path's kernel counters (reset just before the path,
+ 12. launches — each path's kernel counters (reset just before the path,
                read just after) are above zero for the kernels it runs;
                K3 sum's launches are also split by input size
 Then the kernels JSON line, the nvidia-smi line, and the final
@@ -541,7 +557,7 @@ def _span_shapes(torch, chars, nch, valid):
     L = chars.shape[1]
     out = []
     for pat in SPAN_KERNEL_PATTERNS:
-        sb = rx._span_program(pat)._span_bits()
+        sb = rx.get_program(pat)._span_bits()
         counts = sb._all_plain(chars, nch, valid, L + 2, torch.zeros_like(nch), True)[0]
         most = max(int(counts.max()), 1)
         u = " U>1" if sb.nfa.U > 1 else ""
@@ -3293,6 +3309,200 @@ def _category_kernel_shapes(torch, a, nums, device="cuda"):
             ("scan_sum", "csrc/scan.cu", "custrings_tpu/ops/pallas_scan.py:235", [rank])]
 
 
+# ---------------------------------------------------------------- regex
+
+#: the regex phase's patterns: addresses and their groups (K5 first match,
+#: ordered groups), a multi-pattern clean-up (ordered + K5), URLs (the
+#: ordered engine's round loop), IPv4 addresses in log lines (ordered, 30
+#: insts), eight words (min-plus, 40 insts), hashtags with a word
+#: boundary (the per-row DFS, 142 insts)
+REGEX_EMAIL = r"(\w+)@(\w+)"
+REGEX_SWAP = r"\2 at \1"
+REGEX_WHOLE = r"<\0|\2>"
+REGEX_MULTI = ((r"https?://\S+", r"@\w+", r"#\w+"), ("URL", "USER", "TAG"))
+REGEX_URL = r"https?://\S+"
+REGEX_IP = r"(\d{1,3}\.){3}\d{1,3}"
+REGEX_WORDS = " ".join([r"(\w+)"] * 8)
+REGEX_DFS = r"#\w{1,70}\b"
+REGEX_IP_ROWS = 1 << 18
+REGEX_RECORD_ROWS = 1 << 16
+REGEX_WORDS_ROWS = 1 << 16
+REGEX_DFS_ROWS = 4096
+#: the reference's \b for Python re: a change of IS_ALPHANUM (letters and
+#: digits, without the '_' that Python's \b counts as a word char)
+REF_BOUNDARY = r"(?:(?<=[^\W_])(?![^\W_])|(?<![^\W_])(?=[^\W_]))"
+
+
+def _py_template(t: str) -> str:
+    r"""A backref template for Python re.sub: \N becomes \g<N>."""
+    return re.sub(r"\\(\d+)", lambda m: "\\g<%s>" % m.group(1), t)
+
+
+def replace_multi_py(s, rxs, reps):
+    """One row of replace_multi: at each step every pattern's first match
+    from the row's begin, the earliest begin winning and a tie going to
+    the lowest index, then the reference's advance rule (begin = end if
+    end > begin of the match, else begin + 1).  A pattern's match from an
+    earlier begin is reused while it starts at or after the begin."""
+    if s is None:
+        return None
+    out, cur, begin = [], 0, 0
+    cache = [None] * len(rxs)
+    while begin <= len(s):
+        best = None
+        for k, rx in enumerate(rxs):
+            c = cache[k]
+            if c is None or (c is not False and c[0] < begin):
+                m = rx.search(s, begin)
+                c = cache[k] = (m.start(), m.end()) if m else False
+            if c is not False and (best is None or c[0] < best[0]):
+                best = (c[0], c[1], k)
+        if best is None:
+            break
+        b, e, k = best
+        out += [s[cur:b], reps[k]]
+        cur = e
+        begin = e if e > b else begin + 1
+    return "".join(out) + s[cur:]
+
+
+def regex_oracle(strs, logs, ip_rows=REGEX_IP_ROWS, head_rows=REGEX_RECORD_ROWS,
+                 words_rows=REGEX_WORDS_ROWS, dfs_rows=REGEX_DFS_ROWS):
+    """Python re's answers to the regex phase, keyed as _run_regex's."""
+    em, url, ip = re.compile(REGEX_EMAIL), re.compile(REGEX_URL), re.compile(REGEX_IP)
+    words, dfs = re.compile(REGEX_WORDS), re.compile(REGEX_DFS.replace(r"\b", REF_BOUNDARY))
+    first = [None if s is None else em.search(s) for s in strs]
+    found = [None if s is None else [m.group(0) for m in url.finditer(s)] for s in strs]
+    wfirst = [None if s is None else words.search(s) for s in strs[:words_rows]]
+    multi = [re.compile(p) for p in REGEX_MULTI[0]]
+    return {
+        "extract": [[None if m is None else m.group(g) for m in first] for g in (1, 2)],
+        "replace_with_backrefs": [None if s is None else em.sub(_py_template(REGEX_SWAP), s) for s in strs],
+        "replace_with_backrefs(\\0)": [None if s is None else em.sub(_py_template(REGEX_WHOLE), s)
+                                       for s in strs],
+        "replace_multi": [replace_multi_py(s, multi, REGEX_MULTI[1]) for s in strs],
+        "count": [0 if f is None else len(f) for f in found],
+        "findall_record": found,
+        "replace(ip)": [None if s is None else ip.sub("IP", s) for s in logs[:ip_rows]],
+        "extract_record": [[None, None] if m is None else [m.group(1), m.group(2)] for m in first[:head_rows]],
+        "extract(8 words)": [[None if m is None else m.group(g) for m in wfirst] for g in range(1, 9)],
+        "count(dfs)": [0 if s is None else sum(1 for _ in dfs.finditer(s)) for s in strs[:dfs_rows]],
+    }
+
+
+def _run_regex(torch, strs, logs, device="cuda"):
+    """The regex phase through the facade: extract, replace_with_backrefs
+    (two templates), replace_multi, count and findall_record of URLs on
+    the tweet rows; replace of IPv4 addresses on the first REGEX_IP_ROWS
+    log rows; extract_record and the eight-word extract on the first
+    REGEX_RECORD_ROWS / REGEX_WORDS_ROWS rows; the DFS count on the first
+    REGEX_DFS_ROWS.  Returns (results read back to the host, per-op
+    seconds, per-op peak device memory, per-op kernel launches); the CPU
+    tests run it with device="cpu" at a few thousand rows."""
+    from custrings_tpu_torch import kernels, nvstrings
+
+    cuda = device == "cuda"
+    times, peaks, launches = {}, {}, {}
+    step = _stepper(torch, times, peaks if cuda else None, cuda)
+
+    def op(name, fn):
+        before = dict(kernels.LAUNCHES)
+        out = step(name, fn)
+        launches[name] = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+        return out
+
+    def host(name, x):
+        return step(f"{name}_to_host", lambda: [c.to_host() for c in x] if isinstance(x, list) else x.to_host())
+
+    s = op("to_device", lambda: nvstrings.to_device(strs, device=device))
+    res = {"extract": host("extract", op("extract", lambda: s.extract(REGEX_EMAIL)))}
+    for name, tpl in (("replace_with_backrefs", REGEX_SWAP), ("replace_with_backrefs(\\0)", REGEX_WHOLE)):
+        res[name] = host(name, op(name, lambda tpl=tpl: s.replace_with_backrefs(REGEX_EMAIL, tpl)))
+    res["replace_multi"] = host("replace_multi", op(
+        "replace_multi", lambda: s.replace_multi(list(REGEX_MULTI[0]), list(REGEX_MULTI[1]))))
+    res["count"] = op("count", lambda: s.count(REGEX_URL))
+    found = op("findall_record", lambda: s.findall_record(REGEX_URL))
+    res["findall_record"] = step("findall_record_to_host", lambda: _records_to_host(found))
+    del s, found
+    ip = op("to_device(logs)", lambda: nvstrings.to_device(logs[:REGEX_IP_ROWS], device=device))
+    res["replace(ip)"] = host("replace(ip)", op("replace(ip)", lambda: ip.replace(REGEX_IP, "IP")))
+    del ip
+    head = op("to_device(head)", lambda: nvstrings.to_device(strs[:REGEX_RECORD_ROWS], device=device))
+    recs = op("extract_record", lambda: head.extract_record(REGEX_EMAIL))
+    res["extract_record"] = step("extract_record_to_host", lambda: _records_to_host(recs))
+    del head, recs
+    words = op("to_device(words)", lambda: nvstrings.to_device(strs[:REGEX_WORDS_ROWS], device=device))
+    res["extract(8 words)"] = host("extract(8 words)", op("extract(8 words)", lambda: words.extract(REGEX_WORDS)))
+    dfs = op("to_device(dfs)", lambda: nvstrings.to_device(strs[:REGEX_DFS_ROWS], device=device))
+    res["count(dfs)"] = op("count(dfs)", lambda: dfs.count(REGEX_DFS))
+    return res, times, peaks, launches
+
+
+def _check_regex(want, res):
+    return {k: _mismatches(res[k], want[k]) for k in want}
+
+
+def _regex_kernel_shapes(torch, strs, device="cuda"):
+    """K4e, K4c and K5 at the regex path's own calls on the tweet rows,
+    captured by wrapping the names their callers look up, each with its
+    own bound: replace_with_backrefs' gap expansion (shift_compact.
+    expand_to) and stream_expand_spans' expansion of the first group's
+    bytes (route.expand_stream) (K4e), the gap compaction of
+    _replace_frame (K4c, the bytes and their inserted-bytes counts), and
+    extract's first-match call (SpanBits.single; K5).  Returns [(name,
+    source, replaces, shapes)]; the CPU tests run it with device="cpu"."""
+    from custrings_tpu_torch import column
+    from custrings_tpu_torch.column import cumsum0
+    from custrings_tpu_torch.ops import route, shift_compact
+    from custrings_tpu_torch.regex import ops as rx
+    from custrings_tpu_torch.regex.span_bits import SpanBits
+
+    col = column.from_host_strings(strs, device)
+    with _Calls((shift_compact, "expand_to"), (shift_compact, "compact_arrays"), (route, "expand_stream")) as log:
+        rx.replace_with_backrefs(col, REGEX_EMAIL, REGEX_SWAP)
+    with _Calls((SpanBits, "single")) as k5:
+        rx.extract(col, REGEX_EMAIL)
+    gap = [a for site, a in log.calls if site == "shift_compact.expand_to"]
+    stream = [a for site, a in log.calls if site == "route.expand_stream"]
+    comp = [a for site, a in log.calls if site == "shift_compact.compact_arrays"]
+    if not gap or not stream or not comp or len(k5.calls) != 1:
+        raise AssertionError(f"regex path calls not captured: expand_to {len(gap)}, expand_stream {len(stream)}, "
+                             f"compact_arrays {len(comp)}, SpanBits.single {len(k5.calls)} (want one)")
+
+    def expand(label, live, dist, planes, out_cap, want=True):
+        names = "+".join(str(a.dtype).split(".")[-1] for a in planes)
+        return (f"{names}[{live.shape[0]}] -> [{out_cap}] {label}",
+                lambda: _expanded(route.expand_stream(live, dist, planes, out_cap, want)),
+                lambda: _expanded(route._expand_plain(live.bool(), dist.to(torch.int32), planes, out_cap, want)),
+                {"bound": _expand_bound(live, planes, out_cap, want)})
+
+    k4e = [expand("replace_with_backrefs' gap bytes", *gap[0]),
+           expand("stream_expand_spans (group 2's bytes)", *stream[0])]
+    keep, planes = comp[0]
+    k0 = cumsum0(keep)
+    cap, kept = keep.shape[0], int(k0[-1])
+    esum = sum(a.element_size() for a in planes)
+    k4c = (f"u8+i32[{cap}] _replace_frame's gap bytes ({kept} kept)",
+           lambda: tuple(route.compact_stream(keep, planes, k0)[0]),
+           lambda: tuple(route._compact_plain(keep, k0, a) for a in planes),
+           {"bound": (cap * (1 + 4 + esum) + kept * esum, 0)})
+    sb, chars, nch, start = k5.calls[0][1][:4]
+    n, L = chars.shape
+    valid = torch.ones(n, dtype=torch.bool, device=chars.device)
+    st = torch.as_tensor(start, dtype=torch.int32, device=chars.device).expand(n).contiguous()
+
+    def first(call):
+        return lambda: call(chars, nch, valid, 1, st, False)
+
+    _, B, E = sb._all_plain(chars, nch, valid, 1, st, False)
+    k5c = (f"i32[{n},{L}] extract's first match of {REGEX_EMAIL}", first(sb._launch) if chars.is_cuda
+           else first(sb._all_plain), first(sb._all_plain),
+           {"bound": _span_all_bound(torch, nch, valid, L, 1, B, E)})
+    return [("route_expand", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:448", k4e),
+            ("route_compact", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:290", [k4c]),
+            ("span_all", "csrc/spans.cu", "custrings_tpu/regex/pallas_spans.py:251", [k5c])]
+
+
 def _traced_slice(torch, strs, device="cuda"):
     """The slice's three ops (contains, replace, dictionary encode) through
     the facades once untraced and once with tracing enabled: (the traced
@@ -3344,6 +3554,7 @@ TEXT_KERNELS = ("scan_sum", "route_compact", "window_bytes", "window_words")
 CLEAN_KERNELS = ("scan_sum", "route_compact", "route_expand", "window_bytes", "window_words")
 CONVERT_KERNELS = ("scan_sum", "scan_max", "window_bytes", "window_words", "route_expand", "compact_bytes")
 CATEGORY_KERNELS = ("scan_sum", "window_words")
+REGEX_KERNELS = ("span_all", "scan_sum", "window_bytes", "route_compact", "route_expand")
 
 
 def main() -> int:
@@ -3591,6 +3802,37 @@ def main() -> int:
     del cat_a, cat_b, nums
     torch.cuda.empty_cache()
 
+    # the regex path: the span engines with capture groups and the
+    # facade's extract, extract_record, replace_multi, replace_with_backrefs
+    t_rx = time.perf_counter()
+    rx_want = regex_oracle(strs, logs)
+    rx_oracle_s = time.perf_counter() - t_rx
+    warm = [None if x is None else x[:48] for x in strs[:512]]
+    _run_regex(torch, warm, [None if x is None else x[:64] for x in logs[:512]])  # first use
+    torch.cuda.empty_cache()
+    (xres, xtimes, xpeaks, xlaunches), regex_launches = _driven(
+        torch, kernels, lambda torch, _: _run_regex(torch, strs, logs), None)
+    xbad = _check_regex(rx_want, xres)
+    _emit({"phase": "regex", "rows": ROWS, "ip_rows": REGEX_IP_ROWS, "record_rows": REGEX_RECORD_ROWS,
+           "words_rows": REGEX_WORDS_ROWS, "dfs_rows": REGEX_DFS_ROWS,
+           "matches": {"extract": sum(x is not None for x in xres["extract"][0]), "count": sum(xres["count"]),
+                       "count(dfs)": sum(xres["count(dfs)"])},
+           "ms": {k: v * 1e3 for k, v in xtimes.items()}, "max_memory_allocated": max(xpeaks.values()),
+           "max_memory_allocated_by_op": xpeaks, "launches_by_op": xlaunches, "oracle_seconds": rx_oracle_s,
+           "phase_seconds": time.perf_counter() - t_rx, "script_seconds_before_phase": t_rx - t_main,
+           "mismatches": xbad})
+    if any(xbad.values()):
+        raise AssertionError(f"regex ops disagree with Python re: {xbad}")
+    del xres, rx_want
+    torch.cuda.empty_cache()
+    regex_cases = [(name, src, rep, shapes, shapes[0][3]["bound"], None)
+                   for name, src, rep, shapes in _regex_kernel_shapes(torch, strs)]
+    for t in _measure(torch, regex_cases, slow=("route_expand", "route_compact"), one_plain=("span_all",),
+                      phase="kernel_regex"):
+        by_name[t["name"]]["shapes"] += t["shapes"]
+        by_name[t["name"]]["max_abs_err"] = max(by_name[t["name"]]["max_abs_err"], t["max_abs_err"])
+    torch.cuda.empty_cache()
+
     # tracing: the slice's three ops once with the wrappers active
     trace_rows, same = _traced_slice(torch, strs[:65536])
     _emit({"phase": "tracing", "rows": 65536, "report": trace_rows, "results_identical": same})
@@ -3600,14 +3842,15 @@ def main() -> int:
 
     paths = {"slice": slice_launches, "spans": span_launches, "matchers": matcher_launches,
              "hash": hash_launches, "compact": compact_launches, "text": text_launches,
-             "clean": clean_launches, "convert": convert_launches, "category": category_launches}
+             "clean": clean_launches, "convert": convert_launches, "category": category_launches,
+             "regex": regex_launches}
     _emit({"phase": "launches", **paths})
     missing = []
     for path_name, need in (("slice", SLICE_KERNELS), ("spans", SPAN_KERNELS),
                             ("matchers", MATCHER_KERNELS), ("hash", HASH_KERNELS),
                             ("compact", COMPACT_KERNELS), ("text", TEXT_KERNELS),
                             ("clean", CLEAN_KERNELS), ("convert", CONVERT_KERNELS),
-                            ("category", CATEGORY_KERNELS)):
+                            ("category", CATEGORY_KERNELS), ("regex", REGEX_KERNELS)):
         missing += [f"{path_name}: {k}" for k in need if paths[path_name][k] <= 0]
     if missing:
         raise AssertionError(f"kernels their path never launched: {missing}")

@@ -1,16 +1,15 @@
 """nvstrings facade over the port's ops.
 
-Port of `custrings_tpu/nvstrings.py`: every method of the JAX facade but
-the four regex methods that wait for the span engine with groups
-(`extract`, `extract_record`, `replace_multi`, `replace_with_backrefs`),
-and all 14 module functions.  Construction and export (`to_device`,
+Port of `custrings_tpu/nvstrings.py`: every method of the JAX facade and
+all 14 module functions.  Construction and export (`to_device`,
 `to_host`, `to_offsets`, `get_ipc_data`, `__getitem__`, `__iter__`), row
 attributes and predicates, search, `hash`, the number, address, boolean
 and timestamp parsers (`stoi`, `stol`, `stof`, `stod`, `htoi`, `ip2int`,
 `to_booleans`, `timestamp2int`) and their formatters (`itos`, `ltos`,
 `ftos`, `dtos`, `int2ip`, `from_booleans`, `int2timestamp`), rewrites
 (the case maps, strips, slices, paddings, `url_encode`, `url_decode`,
-...), joins, splits, row moves, `from_csv` and `get_info`.  Return
+...), the regex ops (`count`, `findall`, `extract`, `replace`,
+`replace_multi`, `replace_with_backrefs`, ...), joins, splits, row moves, `from_csv` and `get_info`.  Return
 shapes are the JAX facade's, with None for a null row's value; there are
 no `devptr` / `bdevmem` arguments (results are Python lists, and raw
 device pointers are not part of the port's surface).  A function that
@@ -300,11 +299,39 @@ class nvstrings:
         """Per row: an nvstrings of its matches (None for null rows)."""
         return _records(_rx.findall_record(self._col, pat))
 
+    def extract(self, pat):
+        """nvstrings i holds each row's capture group i + 1 in its first
+        match (null where none); [] for a pattern without groups."""
+        return [nvstrings(c) for c in _rx.extract(self._col, pat)]
+
+    def extract_record(self, pat):
+        """Per row: an nvstrings of its first match's capture groups."""
+        cols = _rx.extract_record(self._col, pat)
+        return _transpose_records(cols) if cols else []
+
     def replace(self, pat, repl, n=-1, regex=True):
         """Replace occurrences of `pat` with `repl` in each row."""
         if regex:
             return nvstrings(_rx.replace_re(self._col, pat, repl, n))
         return nvstrings(_modify.replace_literal(self._col, pat, repl, n))
+
+    def replace_multi(self, pats, repls, regex=True):
+        """Replace each of `pats` with its entry of `repls` (a list, one
+        str for all, or an nvstrings).  regex=True: one pass, the earliest
+        match of any pattern first; regex=False: each literal in turn."""
+        rep = repls.to_host() if isinstance(repls, nvstrings) else repls
+        if regex:
+            return nvstrings(_rx.replace_multi_re(self._col, pats, rep))
+        cur = self._col
+        rl = rep if isinstance(rep, (list, tuple)) else [rep] * len(pats)
+        for p, r in zip(pats, rl):
+            cur = _modify.replace_literal(cur, p, r)
+        return nvstrings(cur)
+
+    def replace_with_backrefs(self, pat, repl):
+        """Replace every match with the template `repl`, \\N standing for
+        group N's text (\\0 the whole match)."""
+        return nvstrings(_rx.replace_with_backrefs(self._col, pat, repl))
 
     def join(self, sep=""):
         """The whole column as one string, the rows joined by `sep` (null

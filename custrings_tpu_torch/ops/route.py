@@ -18,15 +18,16 @@ and every plane of a call moves in one launch.
                                            in an output of m slots
     cover_spans(bb, ee, ok, cap)           the byte mask of disjoint spans,
                                            which a compaction then moves
+    stream_expand_spans(stream, ...)       a compacted byte stream moved
+                                           into per-span output slots
 
 Planes may be uint8/bool, int32 or int64.  A CPU tensor takes the plain
 version below; a CUDA tensor always launches the kernel, at every size
 (the JAX package's ROUTE_MIN routing is not ported).  The TPU tile and
 DMA-alignment parameters (`tile`, `align`) are TPU workarounds and are
 not ported either, nor is `scatter_sorted`, the TPU's stand-in for a
-scatter: `cover_spans` places its span bounds with an indexed add.
-`stream_expand_spans` comes with the regex ops that call it (ROADMAP
-queue 1, item 2).
+scatter: `cover_spans` and `stream_expand_spans` place their span
+bounds and deltas with an indexed add.
 """
 
 from __future__ import annotations
@@ -166,9 +167,44 @@ def expand_stream(live: torch.Tensor, dist: torch.Tensor, arrays, out_cap: int |
 
 def cover_spans(bb: torch.Tensor, ee: torch.Tensor, ok: torch.Tensor, cap: int) -> torch.Tensor:
     """bool[cap]: the bytes inside the spans [bb, ee) where ok (spans
-    disjoint), from +1/-1 marks at the span bounds and one prefix sum (K3)."""
-    live = ok & (ee > bb)
+    disjoint; any shape), from +1/-1 marks at the span bounds and one
+    prefix sum (K3)."""
+    bb, ee = bb.reshape(-1), ee.reshape(-1)
+    live = ok.reshape(-1) & (ee > bb)
     marks = torch.zeros(cap + 1, dtype=torch.int32, device=bb.device)
     marks.index_add_(0, torch.where(live, bb, cap).to(torch.int64), live.to(torch.int32))
     marks.index_add_(0, torch.where(live, ee, cap).to(torch.int64), -live.to(torch.int32))
     return cumsum_i32(marks[:cap]) > 0
+
+
+def stream_expand_spans(stream, total_live, starts, sizes, okf, out_cap: int) -> torch.Tensor:
+    """uint8[out_cap]: a compacted byte stream moved into per-span output
+    slots, zeros elsewhere.
+
+    stream: uint8[dom], the live spans' bytes back to back in the flat
+    order of okf; total_live: how many of them there are (an int32
+    scalar tensor); starts / sizes / okf: each span's output start, byte
+    size and liveness.  Every byte of span k moves by the same c_k =
+    starts_k - rank_k (rank_k: the stream position of its first byte),
+    nondecreasing because the output starts strictly increase.  The
+    live spans' (c, rank) are compacted (K4c), the telescoping deltas of
+    c placed at the ranks with an indexed add and prefix-summed (K3) into
+    the stream's distances, and the stream expanded once (K4e)."""
+    dom = stream.shape[0]
+    nS = okf.shape[0]
+    dev = stream.device
+    # a zero-size span owns no stream byte
+    okf = okf & (sizes > 0)
+    sz = torch.where(okf, sizes, 0).to(torch.int32)
+    rank0 = cumsum_i32(sz) - sz
+    c = (starts - rank0).to(torch.int32)
+    (cc, rr), k0 = compact_stream(okf, [c, rank0])
+    iv = torch.arange(nS, dtype=torch.int32, device=dev)
+    okd = iv < k0[-1]
+    dlt = torch.where(okd, cc - torch.where(iv > 0, torch.roll(cc, 1), 0), 0)
+    dplane = torch.zeros(dom + 1, dtype=torch.int32, device=dev)
+    dplane.index_add_(0, torch.where(okd, rr.clamp(max=dom), dom).to(torch.int64), dlt)
+    dist = cumsum_i32(dplane[:dom])
+    live = torch.arange(dom, dtype=torch.int32, device=dev) < total_live
+    (plane,), _ = expand_stream(live, dist, [stream], out_cap, False)
+    return plane

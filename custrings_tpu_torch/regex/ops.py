@@ -1,15 +1,16 @@
 """Column-level regex ops: the boolean matchers and the span ops.
 
 Port of `custrings_tpu/regex/ops.py`: `get_program`, `_matches`,
-`contains_re`, `match_re` (on every program and row width), and
-`count_re`, `findall_spans`, `findall_columns`, `findall_record` and
-`replace_re` with their helpers (on `DeviceProgram.all_spans` and the
-span passes K5).  Patterns compile on the host once per process; each
-length class of the column runs at its own width.  The kernels (K2, K2b,
-K5) read the full char tables, so an unbucketed column is one call over
-all its rows; the torch engines (vector, chunked) run the packed-bit
-predicates on every row of an ASCII-dominant column and re-run only its
-non-ASCII rows with the 64K tables, as the JAX package does.
+`contains_re`, `match_re`, `count_re`, `findall_spans`,
+`findall_columns`, `findall_record`, `replace_re`, `extract`,
+`extract_record`, `replace_multi_re` and `replace_with_backrefs`, on
+every program the compiler accepts.  Patterns compile on the host once
+per process; each length class of the column runs at its own width.
+The kernels (K2, K2b, K5) read the full char tables, so an unbucketed
+column is one call over all its rows; the torch engines (vector,
+chunked, min-plus, ordered, DFS) run the packed-bit predicates on every
+row of an ASCII-dominant column and re-run only its non-ASCII rows with
+the 64K tables, as the JAX package does.
 
 The boolean matchers route each length class as the JAX package does:
 a width at or above the chunk threshold takes the chunked engine
@@ -18,23 +19,29 @@ instructions takes K2 (`nfa_bits`), one within K2b's instruction cap and
 table budget takes K2b (`nfa_words`), and any other the vector engine
 (`DeviceProgram.nfa_matches`).
 
-Not ported yet: span programs that are not certified (`longest_safe` or
-`end_unique`) or over 32 instructions (the min-plus, ordered and DFS span
-engines, ROADMAP queue 1, item 2); `extract`, `replace_multi_re` and
-`replace_with_backrefs`.  These raise NotImplementedError.
+The span ops take their spans from `DeviceProgram.all_spans` (K5 for a
+certified program of <= 32 instructions, else the round loop of the torch
+span engines).  The replacements that change sizes (`replace_multi_re`,
+`replace_with_backrefs`) are written on the device by the routing
+writers: the bytes between matches by a compaction (K4c) and an
+expansion (K4e) into the output, the replacement bytes by
+`route.stream_expand_spans`, with the prefix sums on K3.  The JAX
+package's comparison routes (`CUSTRINGS_MULTI_HOST`, `CUSTRINGS_BREF_HOST`
+and its host splicer) are not ported.
 """
 
 from __future__ import annotations
 
 import os
+import re as _pyre
 from functools import lru_cache
 
 import numpy as np
 import torch
 
-from ..column import StringColumn, build_column, empty_column, row_ids_from_offsets
+from ..column import StringColumn, build_column, cumsum0, empty_column, row_ids_from_offsets
 from ..config import bucket_bytes
-from ..ops import layout, substr
+from ..ops import layout, route, segments, shift_compact, substr
 from ..ops.split import TokenColumn, _mask_column
 from . import nfa_bits, nfa_words
 from .compiler import compile_pattern
@@ -120,37 +127,35 @@ def match_re(col: StringColumn, pattern: str) -> torch.Tensor:
     return _matches(col, pattern, True)
 
 
-def _span_program(pattern: str) -> DeviceProgram:
-    """The pattern's program, or NotImplementedError when the span passes
-    (K5) cannot run it."""
-    dp = get_program(pattern)
-    try:
-        dp._span_bits_or_raise()
-    except NotImplementedError as e:
-        raise NotImplementedError(f"pattern {pattern!r}: {e}") from None
-    return dp
-
-
 def _all_spans_device(col: StringColumn, pattern: str):
-    """(counts int32[n], B int32[n, Rcap], E int32[n, Rcap]) device tensors
-    for an unbucketed column.  ASCII-dominant columns take the packed-bit
-    predicates and re-run only the non-ASCII rows with the 64K tables."""
-    dp = _span_program(pattern)
+    """(counts int32[n], B int32[n, W], E int32[n, W]) device tensors for an
+    unbucketed column.  On K5 the planes are [n, L + 2], or, when those
+    would be large, as wide as a counts-only pass and one scalar sync
+    find; the torch engines' round loop grows its planes a round at a
+    time, so they are as wide as the most matches a row has.  The torch
+    engines run every row of an ASCII-dominant column with the packed-bit
+    predicates and re-run only its non-ASCII rows with the 64K tables;
+    K5 reads the char tables, so it takes every row in one call."""
+    dp = get_program(pattern)
     chars, nch = layout.char_matrix(col)
-    Rcap = int(chars.shape[1]) + 2
-    if col.size * Rcap > (1 << 24):
-        # [n, Rcap] planes would be GBs at the 1M tier: bound the round
-        # count with a counts-only pass and one scalar sync first
-        Rcap = max(int(count_re(col, pattern).max()), 1)
+    if dp._span_bits() is not None:
+        Rcap = int(chars.shape[1]) + 2
+        if col.size * Rcap > (1 << 24):
+            # [n, Rcap] planes would be GBs at the 1M tier: bound the round
+            # count with a counts-only pass and one scalar sync first
+            Rcap = max(int(count_re(col, pattern).max()), 1)
+        return dp.all_spans(chars, nch, col.validity, Rcap)
     na = layout.row_nonascii_ids(col)
-    if len(na) * 8 <= max(col.size, 1):
-        counts, B, E = dp.all_spans(chars, nch, col.validity, Rcap, True)
-        if len(na):
-            nad = torch.from_numpy(na).to(col.device)
-            c2, B2, E2 = dp.all_spans(chars[nad], nch[nad], col.validity[nad], Rcap)
-            counts[nad], B[nad], E[nad] = c2, B2, E2
-        return counts, B, E
-    return dp.all_spans(chars, nch, col.validity, Rcap)
+    if len(na) * 8 > max(col.size, 1):
+        return dp.all_spans(chars, nch, col.validity, None)
+    counts, B, E = dp.all_spans(chars, nch, col.validity, None, True)
+    if len(na):
+        nad = torch.from_numpy(na).to(col.device)
+        c2, B2, E2 = dp.all_spans(chars[nad], nch[nad], col.validity[nad], None)
+        W = max(B.shape[1], B2.shape[1])
+        B, E, B2, E2 = (torch.nn.functional.pad(x, (0, W - x.shape[1]), value=-1) for x in (B, E, B2, E2))
+        counts[nad], B[nad], E[nad] = c2, B2, E2
+    return counts, B, E
 
 
 def _all_spans_host(col: StringColumn, pattern: str):
@@ -161,7 +166,7 @@ def _all_spans_host(col: StringColumn, pattern: str):
     if bks is None:
         counts, B, E = (t.cpu().numpy() for t in _all_spans_device(col, pattern))
         return counts, B.astype(np.int64), E.astype(np.int64)
-    dp = _span_program(pattern)
+    dp = get_program(pattern)
     n = col.size
     fetched = []
     for bk in bks:
@@ -194,7 +199,7 @@ def count_re(col: StringColumn, pattern: str) -> torch.Tensor:
     """int32[rows] match counts (count.cu:178-199); null rows count 0."""
     if col.size == 0:
         return torch.zeros(0, dtype=torch.int32, device=col.device)
-    dp = _span_program(pattern)
+    dp = get_program(pattern)
     bks = layout.length_buckets(col)
     if bks is None:
         chars, nch = layout.char_matrix(col)
@@ -379,3 +384,290 @@ def _splice(col: StringColumn, spans, repl) -> StringColumn:
     data = torch.where(j < total, data, torch.zeros((), dtype=torch.uint8, device=dev))
     out_offsets = torch.from_numpy(pb0[row_p0].astype(np.int32)).to(dev)
     return StringColumn(data, out_offsets, col.validity)
+
+
+def extract(col: StringColumn, pattern: str) -> list[StringColumn]:
+    """A column per capture group: each row's group span in its first
+    match (extract.cu:69), null where the row has no match or the group
+    takes no part; [] for a pattern without groups.  The first match
+    comes from the router (spans_single); each group from spans_exec
+    anchored at the match's begin, on the matched rows."""
+    dp = get_program(pattern)
+    if dp.groups_count == 0:
+        return []
+    chars, nch = layout.char_matrix(col)
+    n = col.size
+    dev = col.device
+    m0, b0, _ = dp.spans_single(chars, nch, torch.zeros(n, dtype=torch.int32, device=dev))
+    rows = torch.nonzero(m0)[:, 0]
+    out = []
+    for g in range(1, dp.groups_count + 1):
+        bg = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        eg = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        if rows.numel():
+            bg[rows], eg[rows] = dp._anchored(chars, nch, rows, b0[rows], g)
+        ok = m0 & (bg >= 0) & (eg >= bg) & col.validity
+        sub = substr.slice_from(col, torch.where(ok, bg, 0), torch.where(ok, eg.clamp(min=1), 0))
+        sub = _mask_column(sub, ok)
+        # an empty group must stay "", not the slice's stop <= 0 whole row
+        out.append(_fix_empty(sub, bg.cpu().numpy(), eg.cpu().numpy(), ok.cpu().numpy()))
+    return out
+
+
+def extract_record(col: StringColumn, pattern: str) -> list[StringColumn]:
+    """Row-major extract (extract_record.cu:96): the same group columns as
+    extract(); the facade turns them into one record per row."""
+    return extract(col, pattern)
+
+
+def _copy_column(col: StringColumn) -> StringColumn:
+    return StringColumn(col.data, col.offsets, col.validity)
+
+
+def _multi_spans(dps, chars, lengths, validity):
+    """All non-overlapping matches of any of several programs: per round,
+    every program's first match from the row's begin, the earliest begin
+    winning and a tie going to the lowest program index
+    (replace_multi.cu:110), then the reference's advance rule.  Returns
+    (counts int32[N], B, E, ID int32[N, R]) with R the most matches a row
+    has (at least 1), -1 past a row's count.  Each round adds a column to
+    the planes, so no counts-only pass is needed to size them.
+
+    A program's first match from a begin is also its first match from any
+    later begin up to that match's start (no match of it starts between),
+    and a program without a match from a begin has none from a later one;
+    so each round runs a program only on the active rows whose last match
+    of it now starts before the begin."""
+    N = chars.shape[0]
+    dev = chars.device
+    P = len(dps)
+    counts = torch.zeros(N, dtype=torch.int32, device=dev)
+    begins = torch.zeros(N, dtype=torch.int32, device=dev)
+    active = validity.to(torch.bool)
+    lens = lengths.to(torch.int32)
+    # each program's latest first match per row (-1: none found yet or
+    # none left), and whether the row has none left
+    mb = torch.full((P, N), -1, dtype=torch.int32, device=dev)
+    me = torch.full((P, N), -1, dtype=torch.int32, device=dev)
+    gone = torch.zeros((P, N), dtype=torch.bool, device=dev)
+    cols = []
+    while True:
+        if not bool(active.any()):
+            break
+        best_b = torch.full((N,), 1 << 30, dtype=torch.int32, device=dev)
+        best_e = torch.zeros_like(best_b)
+        best_id = torch.full_like(best_b, -1)
+        for k, dp in enumerate(dps):
+            rows = torch.nonzero(active & ~gone[k] & (mb[k] < begins))[:, 0]
+            if rows.numel():
+                sub = chars if rows.numel() == N else chars[rows]
+                m, b, e = dp.spans_single(sub, lens[rows], begins[rows])
+                mb[k, rows] = torch.where(m, b, -1)
+                me[k, rows] = torch.where(m, e, -1)
+                gone[k, rows] = ~m
+            better = active & ~gone[k] & (mb[k] < best_b)
+            best_b = torch.where(better, mb[k], best_b)
+            best_e = torch.where(better, me[k], best_e)
+            best_id = torch.where(better, k, best_id)
+        hit = best_id >= 0
+        rows = torch.nonzero(hit)[:, 0]
+        if rows.numel() == 0:
+            break
+        counts += hit.to(torch.int32)
+        cols.append(torch.stack([torch.where(hit, best_b, -1), torch.where(hit, best_e, -1), best_id]))
+        b, e = best_b[rows], best_e[rows]
+        nb = torch.where(e > b, e, begins[rows] + 1)
+        begins[rows] = nb
+        active = torch.zeros(N, dtype=torch.bool, device=dev)
+        active[rows] = nb <= lens[rows]
+    planes = torch.stack(cols, 2) if cols else torch.full((3, N, 1), -1, dtype=torch.int32, device=dev)
+    return counts, planes[0], planes[1], planes[2]
+
+
+def replace_multi_re(col: StringColumn, patterns: list[str], repls) -> StringColumn:
+    """Apply several regexes in one pass (replace_multi.cu:110): at each
+    step the earliest match wins, a tie going to the lowest pattern index.
+    `repls`: one replacement a pattern, or one for all (a str or a
+    one-entry list)."""
+    if isinstance(repls, (list, tuple)):
+        rl = list(repls)
+        if len(rl) == 1 and len(patterns) > 1:
+            rl = rl * len(patterns)
+    else:
+        rl = [repls] * len(patterns)
+    if len(rl) != len(patterns):
+        raise ValueError("repls must have 1 or len(patterns) entries")
+    if col.size == 0:
+        return col
+    return _replace_multi_device(col, tuple(patterns), rl)
+
+
+def _replace_multi_device(col: StringColumn, patterns, rl) -> StringColumn:
+    """replace_multi_re on the device: one pass records every round's
+    (begin, end, pattern id), and the output is written by _replace_frame
+    (the bytes between matches) and stream_expand_spans (the replacement
+    bytes)."""
+    chars, nch = layout.char_matrix(col)
+    dps = [get_program(p) for p in patterns]
+    counts, B, E, ID = _multi_spans(dps, chars, nch, col.validity)
+    if int(counts.max()) == 0:
+        return _copy_column(col)
+    dev = col.device
+    c2b = _c2b_fn(col, layout.char_map(col), nch)
+    Bb, Eb = c2b(B), c2b(E)
+    hitm = B >= 0
+    repl_tab = [r.encode("utf-8") if isinstance(r, str) else bytes(r) for r in rl]
+    lens_tab = torch.tensor([len(r) for r in repl_tab], dtype=torch.int32, device=dev)
+    IDc = ID.clamp(0, len(repl_tab) - 1).to(torch.int64)
+    rep_sz = lens_tab[IDc]
+    out_off, bcap, rep_start, out_data = _replace_frame(col, Bb, Eb, hitm, rep_sz)
+    Lmax = max((len(r) for r in repl_tab), default=0)
+    if Lmax:
+        # [P, Lmax] padded table; each match's bytes by a row gather
+        T = np.zeros((len(repl_tab), Lmax), np.uint8)
+        for i, r in enumerate(repl_tab):
+            T[i, : len(r)] = np.frombuffer(r, np.uint8)
+        vals = torch.from_numpy(T).to(dev)[IDc.reshape(-1)]
+        bcol = torch.arange(Lmax, dtype=torch.int32, device=dev)[None, :]
+        live = hitm.reshape(-1)[:, None] & (bcol < rep_sz.reshape(-1)[:, None])
+        (stream,), k0s = shift_compact.compact_arrays(live.reshape(-1), [vals.reshape(-1)])
+        out_data = out_data + route.stream_expand_spans(
+            stream, k0s[-1], rep_start.reshape(-1), torch.where(hitm, rep_sz, 0).reshape(-1),
+            hitm.reshape(-1), bcap,
+        )
+    return StringColumn(out_data, out_off, col.validity)
+
+
+def _c2b_fn(col: StringColumn, cm, nch):
+    """Char -> byte positions for [n, R] planes: -1 stays -1, a position
+    at or past the row's char count maps to the row's end offset."""
+    cap = col.capacity
+    co = cm.char_offsets[:-1][:, None]
+    char_pos = cm.char_pos
+    top = min(cap, char_pos.shape[0]) - 1
+
+    def c2b(P):
+        b = char_pos[(co + P).clamp(0, max(top, 0)).to(torch.int64)] if top >= 0 else torch.zeros_like(P)
+        b = torch.where(P >= nch[:, None], col.offsets[1:][:, None], b)
+        return torch.where(P < 0, -1, b).to(torch.int32)
+
+    return c2b
+
+
+def _replace_frame(col: StringColumn, Bb, Eb, hitm, rep_sz):
+    """The size calculus and the bytes between matches of a span
+    replacement.  Given byte match planes [n, R] and each match's
+    replacement size: the output offsets (K3; one scalar sync for the
+    total), the output capacity, each match's replacement start, and the
+    output plane holding every byte outside the matches at its place (a
+    K4c compaction of the gap bytes with their inserted-bytes-before
+    count, then one K4e expansion by it).  Ref: replace_backref.cu:180."""
+    cap = col.capacity
+    dev = col.device
+    off0 = col.offsets[:-1][:, None]
+    msz = torch.where(hitm, Eb - Bb, 0)
+    rep_sz = torch.where(hitm, rep_sz, 0).to(torch.int32)
+    lens = col.offsets[1:] - col.offsets[:-1]
+    out_lens = (lens - msz.sum(1) + rep_sz.sum(1)).to(torch.int32)
+    out_off = cumsum0(out_lens)
+    total = int(out_off[-1])  # scalar sync
+    bcap = bucket_bytes(max(total, 1))
+    rem_bef = (msz.cumsum(1) - msz).to(torch.int32)
+    ins_bef = (rep_sz.cumsum(1) - rep_sz).to(torch.int32)
+    rep_start = out_off[:-1, None] + (Bb - off0) - rem_bef + ins_bef
+    j = torch.arange(cap, dtype=torch.int32, device=dev)
+    keep_gap = (j < col.offsets[-1]) & ~route.cover_spans(Bb, Eb, hitm, cap)
+    # inserted bytes before each byte: a match adds its size at its end
+    ins = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    ins.index_add_(0, torch.where(hitm, Eb, cap).reshape(-1).to(torch.int64), rep_sz.reshape(-1))
+    ins_plane = segments.cumsum(ins[:cap])
+    (gdata, gins), k0g = shift_compact.compact_arrays(keep_gap, [col.data, ins_plane])
+    (gap_plane,), _ = shift_compact.expand_to(j < k0g[-1], gins, [gdata], bcap, False)
+    return out_off, bcap, rep_start, gap_plane
+
+
+def replace_with_backrefs(col: StringColumn, pattern: str, repl: str) -> StringColumn:
+    """Replace every non-overlapping match with the template `repl`, where
+    \\N stands for group N's text in that match and \\0 for the whole match
+    (replace_backref.cu:122; the template parse of backref.h:32-57).
+
+    One all_spans call records each match's span and the spans of the
+    template's groups.  The output is written on the device: the bytes
+    between matches by _replace_frame, each group token's bytes by a
+    cover mask, a compaction (K4c) and stream_expand_spans, the literals
+    as a tiled constant expanded (K4e) in match-rank order.  The planes
+    are as wide as the most matches a row has (on K5 a counts-only launch
+    finds it; the torch engines' round loop grows them)."""
+    tokens = _pyre.split(r"\\(\d+)", repl)
+    lits = [t.encode("utf-8") for t in tokens[::2]]  # P + 1 literals
+    gids = [int(t) for t in tokens[1::2]]  # P group refs between them
+    dp = get_program(pattern)
+    n = col.size
+    if n == 0:
+        return _copy_column(col)
+    dev = col.device
+    cap = col.capacity
+    chars, nch = layout.char_matrix(col)
+    exec_gids = tuple(sorted({g for g in gids if g != 0}))
+    spans = dp.all_spans(chars, nch, col.validity, None, groups=exec_gids)
+    if int(spans[0].max()) == 0:
+        return _copy_column(col)
+    B, E = spans[1], spans[2]
+    gplane = dict(zip(exec_gids, spans[3])) if exec_gids else {}
+    gplane[0] = (B, E)
+    c2b = _c2b_fn(col, layout.char_map(col), nch)
+    Bb, Eb = c2b(B), c2b(E)
+    hitm = B >= 0
+    gB, gE = {}, {}
+    for g, (pb, pe) in gplane.items():
+        bb, ee = c2b(pb), c2b(pe)
+        ok = hitm & (bb >= 0) & (ee >= bb)
+        gB[g], gE[g] = torch.where(ok, bb, 0), torch.where(ok, ee, 0)
+    tok_sz = [gE[g] - gB[g] for g in gids]
+    lit_total = sum(len(b) for b in lits)
+    rep_sz = torch.full_like(Bb, lit_total)
+    for sz in tok_sz:
+        rep_sz = rep_sz + sz
+    out_off, bcap, rep_start, out_data = _replace_frame(col, Bb, Eb, hitm, rep_sz)
+
+    # piece starts inside a replacement: lit_0 g_0 lit_1 g_1 ... lit_P
+    P = len(gids)
+    lit_starts, tok_starts = [], []
+    acc = rep_start
+    for i in range(P + 1):
+        lit_starts.append(acc)
+        acc = acc + len(lits[i])
+        if i < P:
+            tok_starts.append(acc)
+            acc = acc + tok_sz[i]
+
+    # group tokens: compact the spans' bytes, expand them to their slots
+    in_data = torch.arange(cap, dtype=torch.int32, device=dev) < col.offsets[-1]
+    for ti, g in enumerate(gids):
+        okt = hitm & (gE[g] > gB[g])
+        inside = route.cover_spans(gB[g], gE[g], okt, cap) & in_data
+        (tdata,), k0t = shift_compact.compact_arrays(inside, [col.data])
+        out_data = out_data + route.stream_expand_spans(
+            tdata, k0t[-1], tok_starts[ti].reshape(-1), tok_sz[ti].reshape(-1), okt.reshape(-1), bcap
+        )
+
+    # literals: a tiled constant expanded to each match's pieces, in match
+    # rank order so every live lane precedes every dead one (lane (m, k)
+    # holds byte k of the literal block of the m-th match)
+    if lit_total:
+        nR = hitm.numel()
+        lit_cat = torch.from_numpy(np.frombuffer(b"".join(lits), np.uint8).copy()).to(dev)
+        pmap = torch.tensor([i for i, lb in enumerate(lits) for _ in lb], dtype=torch.int64, device=dev)
+        omap = torch.tensor([k for lb in lits for k in range(len(lb))], dtype=torch.int32, device=dev)
+        hitf = hitm.reshape(-1)
+        vps = torch.zeros((nR, P + 1), dtype=torch.int32, device=dev)
+        vps[: int(hitf.sum())] = torch.stack(lit_starts, 2).reshape(nR, P + 1)[hitf]
+        nv = hitf.sum()
+        iv = torch.arange(nR, dtype=torch.int32, device=dev)[:, None]
+        out_pos = vps[:, pmap] + omap[None, :]
+        fi = iv * lit_total + torch.arange(lit_total, dtype=torch.int32, device=dev)[None, :]
+        live = (iv < nv).expand(nR, lit_total)
+        dist = torch.where(live, out_pos - fi, 0).reshape(-1)
+        (lplane,), _ = shift_compact.expand_to(live.reshape(-1), dist, [lit_cat.repeat(nR)], bcap, False)
+        out_data = out_data + lplane
+    return StringColumn(out_data, out_off, col.validity)

@@ -9,6 +9,7 @@
     python3 profile_slice.py --ops clean   # the per-op rows of the clean ops
     python3 profile_slice.py --ops convert # the per-op rows of the conversion ops
     python3 profile_slice.py --ops category  # the per-op rows of the category ops
+    python3 profile_slice.py --ops regex   # the per-op rows of the regex ops
 
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
 "THE"), dictionary_encode, the growing and shrinking replace_literal
@@ -31,7 +32,12 @@ from_csv reads them, each category op of chip_smoke.py's category phase
 at the op level (category.py's build, lookups, gathers, row edits, keyset
 algebra and merges on chip_smoke.make_category_rows(), numeric.py's
 build and merge_and_remap at each key type of
-chip_smoke.make_numeric_columns()), and for each matcher of the
+chip_smoke.make_numeric_columns()), each op of chip_smoke.py's regex
+phase at the op level (extract, replace_with_backrefs with two
+templates, replace_multi_re, count_re and findall_record of URLs on the
+tweets; replace_re of IPv4 addresses on the first 2^18 log rows; the
+eight-word extract on the first 2^16 tweets; the DFS count on the first
+4,096), and for each matcher of the
 matchers phase (contains_re of ERR, ISO and MONTH on the 2^20 log rows of
 chip_smoke.make_logs(), of BIG on their first 65,536, of ERR on the 2,048
 long rows): the wall time without the profiler, and under torch.profiler
@@ -58,7 +64,8 @@ naming the package's directory.
 
 `--ops a,b,...` runs the per-op rows of the named ops alone (names as in
 the op table in main(); `text` names every text op, `clean` every clean
-op, `convert` every conversion op, `category` every category op); they call only the package's entry points, so an earlier tree's
+op, `convert` every conversion op, `category` every category op, `regex`
+every regex phase op); they call only the package's entry points, so an earlier tree's
 package is profiled the same way.  The kernels' own
 times at the main path's calls are chip_smoke.py's kernel phase.
 """
@@ -100,7 +107,7 @@ def all_spans_part(torch, strs) -> None:
     chars, nch = layout.char_matrix(col, layout.max_row_bytes(col))
     L = chars.shape[1]
     for pat in cs.SPAN_KERNEL_PATTERNS:
-        dp = rx._span_program(pat)
+        dp = rx.get_program(pat)
         most = max(int(dp.all_spans(chars, nch, col.validity, L + 2, counts_only=True)[0].max()), 1)
         for label, R, co in (("counts only", L + 2, True), ("full planes", most, False)):
             call = lambda R=R, co=co: dp.all_spans(chars, nch, col.validity, R, counts_only=co)  # noqa: E731
@@ -307,10 +314,25 @@ def main() -> int:
     ops.update(clean_ops)
     ops.update(convert_ops)
     ops.update(category_ops)
+    regex_ops = {
+        "rx extract": ("tweets", lambda c: rx.extract(c, cs.REGEX_EMAIL)),
+        "rx replace_with_backrefs": ("tweets", lambda c: rx.replace_with_backrefs(c, cs.REGEX_EMAIL, cs.REGEX_SWAP)),
+        "rx replace_with_backrefs(\\0)": ("tweets", lambda c: rx.replace_with_backrefs(c, cs.REGEX_EMAIL,
+                                                                                      cs.REGEX_WHOLE)),
+        "rx replace_multi_re": ("tweets", lambda c: rx.replace_multi_re(c, list(cs.REGEX_MULTI[0]),
+                                                                        list(cs.REGEX_MULTI[1]))),
+        "rx count_re(url)": ("tweets", lambda c: rx.count_re(c, cs.REGEX_URL)),
+        "rx findall_record(url)": ("tweets", lambda c: rx.findall_record(c, cs.REGEX_URL)),
+        "rx replace_re(ip)": ("logs ip", lambda c: rx.replace_re(c, cs.REGEX_IP, "IP")),
+        "rx extract(8 words)": ("tweets words", lambda c: rx.extract(c, cs.REGEX_WORDS)),
+        "rx count_re(dfs)": ("tweets dfs", lambda c: rx.count_re(c, cs.REGEX_DFS)),
+    }
+    ops.update(regex_ops)
     if matchers:
         ops = {k: v for k, v in ops.items() if k == "contains_re" or k.endswith("(K2b)")}
     if only is not None:
-        groups = {"text": text_ops, "clean": clean_ops, "convert": convert_ops, "category": category_ops}
+        groups = {"text": text_ops, "clean": clean_ops, "convert": convert_ops, "category": category_ops,
+                  "regex": regex_ops}
         only = [k for name in only for k in groups.get(name, [name])]
         unknown = set(only) - set(ops)
         if unknown:
@@ -320,9 +342,10 @@ def main() -> int:
     strs = cs.make_corpus(cs.ROWS, seed=0)
     corpora = {"tweets": strs}
     srcs = {src for src, _ in ops.values()}
-    if srcs & {"logs", "logs_big"}:
+    if srcs & {"logs", "logs_big", "logs ip"}:
         logs = cs.make_logs(cs.LOG_ROWS, seed=2)
-        corpora.update(logs=logs, logs_big=logs[: cs.BIG_ROWS])
+        corpora.update({"logs": logs, "logs_big": logs[: cs.BIG_ROWS], "logs ip": logs[: cs.REGEX_IP_ROWS]})
+    corpora.update({"tweets words": strs[: cs.REGEX_WORDS_ROWS], "tweets dfs": strs[: cs.REGEX_DFS_ROWS]})
     if "long" in srcs:
         corpora["long"] = cs.make_long_logs(cs.LONG_ROWS, seed=3)
     if srcs & {"text", "text head tokens", "vocabulary"}:

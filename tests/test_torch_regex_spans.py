@@ -21,6 +21,7 @@ from custrings_tpu_torch import column as tcol
 from custrings_tpu_torch import nvstrings as tnv
 from custrings_tpu_torch.ops import layout as tlayout
 from custrings_tpu_torch.ops import substr as tsub
+from custrings_tpu_torch.regex import device as tdevice
 from custrings_tpu_torch.regex import ops as trx
 
 # one intra-op thread a process: the suite runs in several worker processes
@@ -104,16 +105,26 @@ def test_empty_column():
 
 
 @pytest.mark.parametrize("pattern,why", [("a|ab", "ordered_spans"), ("a" * 40, "nfa_spans")])
-def test_uncovered_span_programs_raise(pattern, why):
+def test_uncovered_span_programs_raise(pattern, why, monkeypatch):
     """Programs the bit span passes cannot take (not certified, or over 32
-    instructions) raise, naming the engine they need; never a silent
-    answer from another route."""
-    t, _ = _pair(["xab", "a" * 45, None])
-    for op in (trx.count_re, trx.findall_record, trx.findall_columns, lambda c, p: trx.replace_re(c, p, "z")):
-        with pytest.raises(NotImplementedError, match=why):
-            op(t, pattern)
-    with pytest.raises(NotImplementedError, match=why):
-        tnv.nvstrings(t).replace(pattern, "z")
+    instructions) run on the torch span engine they need (`why`) and
+    equal the JAX package in every op, the facade's replace included."""
+    strs = ["xab", "a" * 45, None, "ab a", ""]
+    t, j = _pair(strs)
+    assert trx.get_program(pattern)._span_bits() is None
+    np.testing.assert_array_equal(trx.count_re(t, pattern).numpy(), np.asarray(jrx.count_re(j, pattern)))
+    got, want = trx.findall_record(t, pattern), jrx.findall_record(j, pattern)
+    _same_column(got.tokens, want.tokens)
+    np.testing.assert_array_equal(got.row_offsets.numpy(), np.asarray(want.row_offsets))
+    for a, b in zip(trx.findall_columns(t, pattern), jrx.findall_columns(j, pattern), strict=True):
+        _same_column(a, b)
+    _same_column(trx.replace_re(t, pattern, "z"), jrx.replace_re(j, pattern, "z"))
+    assert tnv.nvstrings(t).replace(pattern, "z").to_host() == jcol.to_host_strings(jrx.replace_re(j, pattern, "z"))
+    calls = []
+    engine = getattr(tdevice.DeviceProgram, why)
+    monkeypatch.setattr(tdevice.DeviceProgram, why, lambda self, *a, **k: calls.append(why) or engine(self, *a, **k))
+    trx.count_re(t, pattern)
+    assert calls
 
 
 @pytest.mark.parametrize("name", ["ascii", "mixed"])

@@ -147,14 +147,14 @@ def test_replace_same_length_parity(pat, repl, n):
 
 
 def test_size_changing_replace_raises():
-    """Size-changing literal replace is ported now (held to custrings_tpu
-    in test_torch_split.py); what still raises in the replace family is a
-    regex replace whose span program the bit span passes cannot take."""
+    """Size-changing literal replace is ported (held to custrings_tpu in
+    test_torch_split.py), and so is a regex replace whose span program the
+    bit span passes cannot take: nothing in the replace family raises."""
     t, j = _pair(["the", None, "a the"])
     got = tcol.to_host_strings(tmod.replace_literal(t, "the", "THEE"))
     assert got == jcol.to_host_strings(jmod.replace_literal(j, "the", "THEE")) == ["THEE", None, "a THEE"]
-    with pytest.raises(NotImplementedError, match="ordered_spans"):
-        tnv.nvstrings(t).replace("a|ab", "x")  # regex=True is the default
+    got = tnv.nvstrings(t).replace("a|ab", "x").to_host()  # regex=True is the default
+    assert got == jnv.nvstrings(j).replace("a|ab", "x").to_host() == ["the", None, "x the"]
 
 
 def test_kernel_launch_path_refuses_cpu_tensors():

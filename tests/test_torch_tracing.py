@@ -17,7 +17,7 @@ import custrings_tpu  # noqa: F401  (instruments the JAX package's op modules)
 import custrings_tpu.utils.tracing as jtracing
 import custrings_tpu_torch
 from custrings_tpu_torch import column as tcol
-from custrings_tpu_torch.ops import array, compact, layout, segments, shift_compact, unique
+from custrings_tpu_torch.ops import array, compact, layout, route, segments, shift_compact, unique
 from custrings_tpu_torch.utils import tracing
 from test_torch_split_ws import CS
 
@@ -129,7 +129,7 @@ def test_chip_smoke_capture_names_stay_unwrapped():
     and a patch sees every call."""
     sites = [(array, "ragged_gather_words"), (unique, "ragged_gather_words"), (shift_compact, "expand_to"),
              (shift_compact, "compact_arrays"), (layout, "ragged_gather"), (compact, "compact_bytes"),
-             (segments, "cumsum")]
+             (segments, "cumsum"), (route, "expand_stream")]
     for mod, name in sites:
         assert not getattr(getattr(mod, name), "_traced", False), (mod.__name__, name)
     assert unique.dictionary_encode._traced and unique.searchsorted_keys._traced
