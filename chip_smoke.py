@@ -13,6 +13,16 @@ Phases, each printing one JSON line:
                call's time; K3 at every form and edge the main path gives
                it (cumsum0, row ids, int8, lengths 1, 4097 and 8193,
                unaligned views, a wrapping sum), each with its own bound;
+               K1 (window_bytes) at the char matrix, the padded view, the
+               non-ASCII rows' decode, unmasked int32 and uint8 (with one
+               index_select out of an unfolded padded buffer as its
+               library time) and its edges (window_edge_cases: widths 1,
+               15, 16, 17, 31 and 513, unsorted and repeated starts at
+               every residue mod 16, data[1:] views, caps of 16k+1..16k+15,
+               negative starts, both output types, masked and unmasked);
+               every K1 shape and K4c's i64 call also timed back to back
+               (20 calls between one pair of events, with the host's time
+               a call to issue them);
                K1b (window_words) at the encode's own calls (each bound
                counting the union of its windows), a 7-word tail, starts
                at every residue mod 16, a data[1:] view and caps of
@@ -21,16 +31,19 @@ Phases, each printing one JSON line:
                mixed u8 + i32 + i64 call, garbage dist on dead lanes,
                targets at out_cap - 1, out_cap and past, an all-dead
                live and out_cap below n
-     scan    — 100 back-to-back K3 calls exact against their plain
-               versions (no scratch state leaks between calls), and
-               torch.profiler showing one scan kernel per cumsum0 call
      launch checks — torch.profiler: each expand_stream call runs one
                expand_firsts, one expand_kernel and one fill of one word
                (its ticket) and no other fill; each of the encode's
                ragged_gather_words calls one window_words; each hash_mm3
                call one hash_rows; each compact_bytes call one
                compact_tiles and one fill of its scratch status words,
-               no K3 and no fill of an output
+               no K3 and no fill of an output; one profiler session,
+               redone in a fresh process (`chip_smoke.py --launch-checks`,
+               at most twice) when it came back with fewer device
+               records than the calls launched
+     scan    — 100 back-to-back K3 calls exact against their plain
+               versions (no scratch state leaks between calls), and
+               torch.profiler showing one scan kernel per cumsum0 call
      views   — the two padded-view routes at the slice's widths: the
                K1 window gather masked at the lengths (the route every
                size takes) against the streaming view (K4c/K4e, the
@@ -491,6 +504,32 @@ def _time_ms(torch, fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+#: calls between one pair of events in a back-to-back time
+BACK_TO_BACK_CALLS = 20
+#: kernels whose every shape also gets a back-to-back time
+BACK_TO_BACK = ("window_bytes",)
+
+
+def _back_to_back_ms(torch, fn):
+    """(ms, host ms) a call of BACK_TO_BACK_CALLS calls issued back to
+    back between one pair of CUDA events, after one warm-up: the card runs
+    one kernel after another while the host issues the next, so the
+    host's time a call (the second number, host clock around the issuing)
+    sets the pace only where it exceeds the kernel's."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(BACK_TO_BACK_CALLS):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / BACK_TO_BACK_CALLS
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / BACK_TO_BACK_CALLS, host
+
+
 def _timed(torch, fn):
     """(fn's result, ms) of one call timed with CUDA events: for the plain
     walks that take seconds a call, whose one run is also the comparison's."""
@@ -641,6 +680,12 @@ def _kernel_phase(torch, col, width):
     # min(length, width) bytes, its start and its length
     inside = int(lens.clamp(max=width).sum())
     na_inside = int(lens[na].clamp(max=width).sum())
+    # K1's yardstick: one index_select of the unmasked u8 windows out of
+    # a padded buffer's unfolded view (made outside the timed call)
+    unfolded = torch.nn.functional.pad(col.data, (0, width)).unfold(0, width, 1)
+    # K4c at the group representatives: keep and its prefix count read,
+    # the kept elements read, the whole output written
+    reps_kept = int(k0_first[-1])
     cases = [
         ("scan_sum", "csrc/scan.cu", "custrings_tpu/ops/pallas_scan.py:235", sum_shapes,
          (cap * (1 + 4), cap), lambda: torch.cumsum(col.data, 0, dtype=torch.int32)),
@@ -659,7 +704,12 @@ def _kernel_phase(torch, col, width):
            lambda: window._gather_plain(col.data, na_starts, width, lens[na]),
            {"bound": (na_inside + 8 * na.shape[0] + na.shape[0] * width, 0)}),
           (f"i32[{n},{width}] unmasked", lambda: window.ragged_gather_i32(col.data, starts, width),
-           lambda: window._gather_plain(col.data, starts, width).to(torch.int32))],
+           lambda: window._gather_plain(col.data, starts, width).to(torch.int32)),
+          (f"u8[{n},{width}] unmasked", lambda: window.ragged_gather(col.data, starts, width),
+           lambda: window._gather_plain(col.data, starts, width),
+           {"bound": _words_bound(torch, col.data, starts, width),
+            "library": lambda: unfolded.index_select(0, starts)}),
+          *_window_edge_shapes(torch)],
          (inside + 8 * n + 4 * n * width, 0), None),
         ("window_words", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170",
          words, words[0][3]["bound"], None),
@@ -667,7 +717,9 @@ def _kernel_phase(torch, col, width):
          [(f"u8[{cap}] width-64 view", lambda: route.compact_stream(keep, [col.data], k0)[0][0],
            lambda: route._compact_plain(keep, k0, col.data)),
           (f"i64[{n}] group representatives", lambda: route.compact_stream(first, [perm], k0_first)[0][0],
-           lambda: route._compact_plain(first, k0_first, perm))],
+           lambda: route._compact_plain(first, k0_first, perm),
+           {"bound": (n * (1 + 4 + 8) + 4 + 8 * reps_kept, 0),
+            "library": lambda: torch.masked_select(perm, first), "back_to_back": True})],
          (cap * (1 + 4 + 1 + 1), 0), lambda: torch.masked_select(col.data, keep)),
         ("route_expand", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:448",
          expansions, expansions[0][3]["bound"], None),
@@ -784,6 +836,70 @@ def _word_shapes(torch, col):
         out.append(case(f"cap {m} (4k+{r}), windows past it", col.data[:m],
                         (m - 100 + edge).cuda(), 64))
     return out
+
+
+def window_edge_cases(torch, device="cuda", rows: int = 1 << 16, nbytes: int = 1 << 22):
+    """K1's edge cases on a seeded buffer of `nbytes` random bytes:
+    [(label, data, starts, width, lengths or None, int32 output)].
+    Widths 1, 15, 16, 17, 31 and 513 with unsorted starts at every residue
+    mod 16 (every fifth row repeating another row's start), each as uint8
+    and int32, masked and unmasked; data[1:] views; caps of
+    16k+1..16k+15 with windows running past them; negative starts and
+    starts past the end.  Lengths are 0 every seventh row and up to
+    1.5 W + 2 elsewhere, so rows of length 0 and lengths above W occur.
+    The CPU tests run it with device="cpu", where each wrapper is its
+    plain version."""
+    rng = np.random.default_rng(12)
+    base = torch.from_numpy(rng.integers(0, 256, nbytes, dtype=np.uint8)).to(device)
+    i = np.arange(rows)
+
+    def tensor(x):
+        return torch.from_numpy(np.asarray(x, dtype=np.int32)).to(device)
+
+    def lengths(w):
+        ln = rng.integers(0, w + w // 2 + 3, rows)
+        ln[::7] = 0
+        return tensor(ln)
+
+    out = []
+    for w in (1, 15, 16, 17, 31, 513):
+        st = rng.integers(0, (nbytes - w) // 16, rows) * 16 + i % 16
+        st[5::5] = st[rng.integers(0, rows, st[5::5].shape[0])]
+        st, ln = tensor(st), lengths(w)
+        for i32 in (False, True):
+            label = f"width {w}, unsorted and repeated starts at every residue mod 16"
+            out.append((f"{label}, masked", base, st, w, ln, i32))
+            out.append((f"{label}, unmasked", base, st, w, None, i32))
+    for w, i32, masked in ((17, False, True), (320, True, False)):
+        st = tensor(rng.integers(0, nbytes - 1 - w, rows))
+        out.append((f"width {w}, data[1:] view, {'masked' if masked else 'unmasked'}", base[1:], st, w,
+                    lengths(w) if masked else None, i32))
+    for r in range(1, 16):
+        m, w = (nbytes // 16 - 4) * 16 + r, (17, 31, 64)[r % 3]
+        masked = r % 4 >= 2
+        out.append((f"width {w}, cap {m} (16k+{r}), windows past it, {'masked' if masked else 'unmasked'}",
+                    base[:m], tensor(m - w - 8 + i % (w + 24)), w, lengths(w) if masked else None, r % 2 == 1))
+    st = tensor(np.where(i % 2 == 0, rng.integers(-60, 40, rows), rng.integers(nbytes - 30, nbytes + 100, rows)))
+    out.append(("width 40, negative starts and starts past the end, masked", base, st, 40, lengths(40), False))
+    out.append(("width 40, negative starts and starts past the end, unmasked", base, st, 40, None, True))
+    return out
+
+
+def _window_edge_shapes(torch):
+    """window_edge_cases on the card as K1 shapes, each held exactly to
+    _gather_plain."""
+    from custrings_tpu_torch.ops import window
+
+    def case(label, data, st, w, ln, i32):
+        kern = window.ragged_gather_i32 if i32 else window.ragged_gather
+
+        def plain():
+            out = window._gather_plain(data, st, w, ln)
+            return out.to(torch.int32) if i32 else out
+
+        return (f"{'i32' if i32 else 'u8'}[{st.shape[0]},{w}] {label}", lambda: kern(data, st, w, ln), plain)
+
+    return [case(*c) for c in window_edge_cases(torch)]
 
 
 def _captured_expansions(torch, col):
@@ -955,17 +1071,31 @@ def _expand_shapes(torch, col, width, live_grid, dist_grid):
     return out
 
 
-def _launch_checks(torch, col):
-    """torch.profiler over main-path calls of K4e, K1b, K6 and K7: each
-    expand_stream call (with and without placed, one or three planes)
-    must run one expand_firsts, one expand_kernel and one fill of a
-    single word (the pre-pass's ticket) and nothing else, so no fill of
-    an output; each of the encode's ragged_gather_words calls one
-    window_words kernel and nothing else; each hash_mm3 call one
-    hash_rows kernel and nothing else; each compact_bytes call one
-    compact_tiles kernel and one fill of its scratch status words
-    (1 + its input tiles, int64) and nothing else: no K3 scan and no
-    fill of an output."""
+#: fresh processes the launch checks may take, one after another, when a
+#: profile came back without every device record of the calls it ran
+LAUNCH_CHECK_PROCESSES = 2
+#: the name of each group's record_function range in the profile
+_GROUP_MARK = "launch check: "
+
+
+def _launch_profile(torch, col):
+    """torch.profiler over main-path calls of K4e, K1b, K6 and K7, all in
+    one session (a record_function range a group): each expand_stream
+    call (with and without placed, one or three planes) must run one
+    expand_firsts, one expand_kernel and one fill of a single word (the
+    pre-pass's ticket) and nothing else, so no fill of an output; each of
+    the encode's ragged_gather_words calls one window_words kernel and
+    nothing else; each hash_mm3 call one hash_rows kernel and nothing
+    else; each compact_bytes call one compact_tiles kernel and one fill
+    of its scratch status words (1 + its input tiles, int64) and nothing
+    else: no K3 scan and no fill of an output.  The device kernels are
+    judged on their totals over the session (each kernel belongs to one
+    group's calls, the fills to two: their aten ops, host events, are
+    judged a group each).  The profiler can drop device records; a total
+    below what the calls launched, with nothing extra, marks the profile
+    incomplete rather than wrong.  Returns {"complete", "bad",
+    "launched", "device_kernels", "fills", ...}."""
+    from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
 
     from custrings_tpu_torch import kernels
@@ -990,49 +1120,117 @@ def _launch_checks(torch, col):
     cuda = torch.autograd.DeviceType.CUDA
     groups = (("expand_stream", calls), ("ragged_gather_words", words), ("hash_mm3", hashes),
               ("compact_bytes", compacts))
-    found, fills = {}, {}
-    for name, fns in groups:
+    for _, fns in groups:
         for fn in fns:
             fn()  # first use
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
-            for fn in fns:
-                fn()
-            torch.cuda.synchronize()
-        found[name] = {e.key: e.count for e in prof.key_averages()
-                       if e.device_type == cuda and e.self_device_time_total > 0}
-        # a fill is a FillFunctor kernel or a memset, whichever torch takes;
-        # the shapes of the tensors the fills wrote (torch.zeros records a
-        # zero_, an explicit fill a fill_)
-        fills[name] = [[str(e.input_shapes[0] if e.input_shapes else None), e.count]
-                       for e in prof.key_averages(group_by_input_shape=True)
-                       if e.key in ("aten::fill_", "aten::zero_")]
-    want = {"expand_stream": {"expand_firsts": len(calls), "expand_kernel": len(calls), "fill": len(calls)},
-            "ragged_gather_words": {"window_words": len(words)},
-            "hash_mm3": {"hash_rows": len(hashes)},
-            "compact_bytes": {"compact_tiles": len(compacts), "fill": len(compacts)}}
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        for name, fns in groups:
+            with record_function(_GROUP_MARK + name):
+                for fn in fns:
+                    fn()
+                torch.cuda.synchronize()
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("route_expand", "window_words", "hash",
+                                                              "compact_bytes")}
+    found = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == cuda and e.self_device_time_total > 0 and not e.key.startswith(_GROUP_MARK)}
+    # a fill is a FillFunctor kernel or a memset, whichever torch takes;
+    # the shapes of the tensors the fills wrote (torch.zeros records a
+    # zero_, an explicit fill a fill_), by the group whose range holds them
+    events = prof.events()
+    ranges = {e.name[len(_GROUP_MARK):]: e.time_range for e in events
+              if e.device_type != cuda and e.name.startswith(_GROUP_MARK)}
+    fill_counts = {name: {} for name, _ in groups}
+    for e in events:
+        if e.device_type != cuda and e.key in ("aten::fill_", "aten::zero_"):
+            for name, span in ranges.items():
+                if span.start <= e.time_range.start <= span.end:
+                    key = (e.key, str(e.input_shapes[0] if e.input_shapes else None))
+                    fill_counts[name][key] = fill_counts[name].get(key, 0) + 1
+    fills = {name: [[shape, c] for (_, shape), c in per.items()] for name, per in fill_counts.items()}
+    want = {"expand_firsts": len(calls), "expand_kernel": len(calls), "window_words": len(words),
+            "hash_rows": len(hashes), "compact_tiles": len(compacts), "fill": len(calls) + len(compacts)}
+    want_launched = {"route_expand": len(calls), "window_words": len(words), "hash": len(hashes),
+                     "compact_bytes": len(compacts)}
     want_fills = {"expand_stream": [["[1]", len(calls)]], "ragged_gather_words": [], "hash_mm3": []}
 
     def kind(key):
         if "FillFunctor" in key or "Memset" in key:
             return "fill"
-        return next((k for k in ("expand_firsts", "expand_kernel", "window_words", "hash_rows",
-                                 "compact_tiles") if k in key), key)
+        return next((k for k in want if k != "fill" and k in key), key)
 
+    counts = {k: sum(c for key, c in found.items() if kind(key) == k) for k in want}
     bad = {}
-    for name, kinds in want.items():
-        counts = {k: sum(c for key, c in found[name].items() if kind(key) == k) for k in kinds}
-        others = {key: c for key, c in found[name].items() if kind(key) not in kinds}
+    others = {key: c for key, c in found.items() if kind(key) not in want}
+    if others:
+        bad["other device kernels"] = others
+    over = {k: c for k, c in counts.items() if c > want[k]}
+    if over:
+        bad["more device kernels than the calls launch"] = over
+    if launched != want_launched:
+        bad["launch counters"] = launched
+    for name, _ in groups:
         if name == "compact_bytes":
-            fills_ok = {shape for shape, _ in fills[name]} <= status
+            ok = {shape for shape, _ in fills[name]} <= status
         else:
-            fills_ok = fills[name] == want_fills[name]
-        if counts != kinds or others or not fills_ok:
-            bad[name] = {"device_kernels": found[name], "fills": fills[name]}
-    _emit({"phase": "launch checks", "calls": {name: len(fns) for name, fns in groups},
-           "device_kernels": found, "fills": fills, "compact_status_shapes": sorted(status)})
-    if bad:
-        raise AssertionError(f"calls that launched other kernels than theirs: {bad}")
+            ok = fills[name] == want_fills[name]
+        if not ok:
+            bad[f"fills of {name}"] = fills[name]
+    return {"calls": {name: len(fns) for name, fns in groups}, "complete": counts == want,
+            "bad": bad, "launched": launched, "device_kernel_counts": counts, "want": want,
+            "device_kernels": found, "fills": fills, "compact_status_shapes": sorted(status)}
+
+
+def _launch_checks(torch, col):
+    """_launch_profile in this process; if its profile came back
+    incomplete (fewer device records than the calls launched, nothing
+    else wrong), again in up to LAUNCH_CHECK_PROCESSES fresh processes
+    (`chip_smoke.py --launch-checks`, each its first profiler session over
+    the same corpus).  Fails on the first verdict that finds a call
+    launching other kernels than its own, and when no profile came back
+    complete."""
+    verdict = _launch_profile(torch, col)
+    _emit({"phase": "launch checks", "process": "main", **verdict})
+    tries = 0
+    while verdict["complete"] is not True and not verdict["bad"] and tries < LAUNCH_CHECK_PROCESSES:
+        tries += 1
+        torch.cuda.empty_cache()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--launch-checks"],
+                             capture_output=True, text=True, timeout=300)
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+        try:
+            verdict = json.loads(lines[-1])
+        except (IndexError, json.JSONDecodeError):
+            verdict = {"complete": False, "bad": {"fresh process": res.returncode,
+                                                  "stderr": res.stderr[-2000:]}}
+        _emit({"phase": "launch checks", "process": f"fresh {tries}", "rc": res.returncode, **verdict})
+    if verdict["bad"]:
+        raise AssertionError(f"calls that launched other kernels than theirs: {verdict['bad']}")
+    if verdict["complete"] is not True:
+        raise AssertionError(f"the profiler lost device records in {tries + 1} profiles: "
+                             f"{verdict.get('device_kernel_counts')} of {verdict.get('want')}")
+
+
+def _launch_check_process() -> int:
+    """`chip_smoke.py --launch-checks`: _launch_profile alone in this
+    process, over the main run's corpus; prints its verdict as the last
+    line and exits 0 when the profile was complete and clean, 1 when a
+    call launched other kernels than its own (or no card), 3 when the
+    profile was incomplete."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 1
+    from custrings_tpu_torch import column, kernels
+
+    kernels.lib()
+    col = column.from_host_strings(make_corpus(ROWS, seed=0), "cuda")
+    verdict = _launch_profile(torch, col)
+    _emit(verdict)
+    if verdict["bad"]:
+        return 1
+    return 0 if verdict["complete"] else 3
 
 
 def _scan_shapes(torch, col, lens, signed):
@@ -1143,9 +1341,10 @@ def _measure(torch, cases, slow=(), one_plain=(), phase="kernel"):
     """Each case's kernel against its plain version at each shape, exactly,
     with median times; the plain walks of `slow` take 3 timed calls, those
     of `one_plain` one (which is also the comparison's).  A shape may carry
-    a fourth item, {"bound": (bytes, ops), "library": fn}, for its own
-    bound and library time.  Each case's record is printed as a `phase`
-    line."""
+    a fourth item, {"bound": (bytes, ops), "library": fn, "back_to_back":
+    True}, for its own bound, library time and back-to-back time (every
+    shape of the kernels in BACK_TO_BACK has one).  Each case's record is
+    printed as a `phase` line."""
     out = []
     for name, source, replaces, shapes, (nbytes, nops), library in cases:
         rec = {"name": name, "route": "cuda", "source": f"custrings_tpu_torch/{source}",
@@ -1161,6 +1360,8 @@ def _measure(torch, cases, slow=(), one_plain=(), phase="kernel"):
                 plain_ms = _time_ms(torch, plain, reps=3 if name in slow else REPS)
             ms = _time_ms(torch, kern)
             shape = {"shape": label, "ms": ms, "plain_ms": plain_ms}
+            if name in BACK_TO_BACK or (extra and extra[0].get("back_to_back")):
+                shape["ms_back_to_back"], shape["host_ms_back_to_back"] = _back_to_back_ms(torch, kern)
             if extra:
                 shape["bound_ms"], shape["bound_by"] = _bound(*extra[0]["bound"])
                 lib_fn = extra[0].get("library")
@@ -3558,6 +3759,8 @@ REGEX_KERNELS = ("span_all", "scan_sum", "window_bytes", "route_compact", "route
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--launch-checks"]:
+        return _launch_check_process()
     import torch
 
     if not torch.cuda.is_available():
@@ -3588,8 +3791,8 @@ def main() -> int:
            "width": width, "seconds": corpus_s})
 
     recs = _kernel_phase(torch, col, width)
-    _scan_checks(torch, col)
     _launch_checks(torch, col)
+    _scan_checks(torch, col)
 
     t0 = time.perf_counter()
     logs = make_logs(LOG_ROWS, seed=2)

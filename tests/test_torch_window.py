@@ -47,7 +47,7 @@ def _windows():
     return data, starts
 
 
-@pytest.mark.parametrize("width", [1, 100, 513])
+@pytest.mark.parametrize("width", [1, 15, 16, 17, 31, 100, 513])
 def test_ragged_gather_bytes_matches_pallas(width):
     data, starts = _windows()
     want = np.asarray(jwin.ragged_gather_i32(jnp.asarray(data), jnp.asarray(starts), width))
@@ -58,7 +58,7 @@ def test_ragged_gather_bytes_matches_pallas(width):
     np.testing.assert_array_equal(got8.numpy(), want.astype(np.uint8))
 
 
-@pytest.mark.parametrize("width", [1, 8, 64, "full"])
+@pytest.mark.parametrize("width", [1, 8, 15, 16, 17, 31, 64, "full"])
 def test_masked_gather_matches_jax_window_view(width):
     """K1 masked at the row lengths in the gather equals the JAX package's
     window view (its Pallas gather in interpret mode, then the mask), as
@@ -86,6 +86,43 @@ def test_masked_gather_past_the_buffer_matches_pallas():
     want = np.where(np.arange(513)[None, :] < lens[:, None], raw, 0).astype(np.uint8)
     got = twin.ragged_gather(torch.from_numpy(data), torch.from_numpy(starts), 513, torch.from_numpy(lens))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_window_edge_cases_match_pallas():
+    """chip_smoke.window_edge_cases, K1's edges on the card, run on the CPU:
+    each case through the port's wrapper against the Pallas kernel in
+    interpret mode (masked on the host where the case has lengths), and
+    against the gather's definition in numpy.  Each buffer reaches the
+    Pallas kernel zero-padded to the base buffer's length, which keeps the
+    function (the port reads zeros past cap) and one compile a padded
+    width; rows with a negative start are held to numpy alone, since the
+    Pallas kernel clips starts to 0."""
+    cs = _chip_smoke()
+    nbytes = 3000
+    cases = cs.window_edge_cases(torch, "cpu", rows=64, nbytes=nbytes)
+    labels = [c[0] for c in cases]
+    assert {c[3] for c in cases} >= {1, 15, 16, 17, 31, 513}
+    assert {(c[4] is None, c[5]) for c in cases} == {(a, b) for a in (False, True) for b in (False, True)}
+    assert sum("data[1:]" in x for x in labels) == 2
+    assert sorted(int(x.split("16k+")[1].split(")")[0]) for x in labels if "16k+" in x) == list(range(1, 16))
+    raw = {}
+    for label, d, st, w, ln, i32 in cases:
+        cap, s = d.shape[0], st.numpy()
+        key = (d.storage_offset(), cap, id(st), w)
+        if key not in raw:
+            padded = np.zeros(nbytes, np.uint8)
+            padded[:cap] = d.numpy()
+            raw[key] = np.asarray(jwin.ragged_gather_i32(jnp.asarray(padded), jnp.asarray(s), w))
+        g = s[:, None].astype(np.int64) + np.arange(w)[None, :]
+        ref = np.where((g >= 0) & (g < cap), d.numpy()[np.clip(g, 0, cap - 1)], 0)
+        want = raw[key]
+        if ln is not None:
+            keep = np.arange(w)[None, :] < ln.numpy()[:, None]
+            ref, want = np.where(keep, ref, 0), np.where(keep, want, 0)
+        got = (twin.ragged_gather_i32 if i32 else twin.ragged_gather)(d, st, w, ln)
+        assert got.dtype == (torch.int32 if i32 else torch.uint8) and got.shape == (64, w), label
+        np.testing.assert_array_equal(got.numpy(), ref, err_msg=label)
+        np.testing.assert_array_equal(got.numpy()[s >= 0], want[s >= 0], err_msg=label)
 
 
 @pytest.mark.parametrize("width", [4, 64, 98])
