@@ -20,9 +20,20 @@ Phases, each printing one JSON line:
                15, 16, 17, 31 and 513, unsorted and repeated starts at
                every residue mod 16, data[1:] views, caps of 16k+1..16k+15,
                negative starts, both output types, masked and unmasked);
-               every K1 shape and K4c's i64 call also timed back to back
+               every K1 shape and K4c's i64 calls also timed back to back
                (20 calls between one pair of events, with the host's time
                a call to issue them);
+               K4c (route_compact) at the width-64 view's u8[capacity]
+               and the group representatives' i64[1M] calls, each with k0
+               written (as the path makes them), not wanted and given,
+               every plane and k0 held to _compact_plain, with
+               torch.masked_select's time, and at its edges
+               (compact_edge_cases: one sub-tile and one tile - 1, + 0,
+               + 1 elements, densities 0, 1e-4, 0.5 and 1, each element
+               size and eight mixed planes, unaligned views, n of 0 and
+               1, a few calls at the capacity); then the host's time a
+               call of the i64 call's wrapper, by part (compact_stream
+               host);
                K1b (window_words) at the encode's own calls (each bound
                counting the union of its windows), a 7-word tail, starts
                at every residue mod 16, a data[1:] view and caps of
@@ -37,7 +48,12 @@ Phases, each printing one JSON line:
                ragged_gather_words calls one window_words; each hash_mm3
                call one hash_rows; each compact_bytes call one
                compact_tiles and one fill of its scratch status words,
-               no K3 and no fill of an output; one profiler session,
+               no K3 and no fill of an output; each compact_stream call
+               (u8 at the capacity without k0, u8 + i32 with k0 written,
+               eight planes with k0 given) one compact_stream_tiles, one
+               memset of its status words (none with k0 given), no other
+               fill and no K3;
+               one profiler session,
                redone in a fresh process (`chip_smoke.py --launch-checks`,
                at most twice) when it came back with fewer device
                records than the calls launched
@@ -102,8 +118,9 @@ Phases, each printing one JSON line:
                rows (captured): the edit distances' char matrix windows,
                unique_tokens' encode and the token key words of
                tokens_counts and replace_tokens, the whitespace split's
-               compaction (with torch.masked_select's time); each against
-               its plain version, exactly, with its own bound
+               compaction (as the path makes it, without k0, and with k0
+               given; with torch.masked_select's time); each against its
+               plain version, exactly, with its own bound
   8. clean   — make_corpus's rows and 4,096 seeded edge rows (ß, ŉ, ΐ,
                Σ/ς, 4-byte UTF-8, NUL, whitespace runs, signs, İ/ẞ, empty,
                null) through the facade's cleanup chain: strip(), then
@@ -172,8 +189,9 @@ Phases, each printing one JSON line:
                \b written as a change of IS_ALPHANUM)
      kernel_regex — K4e, K4c and K5 at the regex path's own calls
                (captured): replace_with_backrefs' gap expansion and
-               stream_expand_spans' expansion, the gap compaction,
-               extract's first-match call; each against its plain version,
+               stream_expand_spans' expansion, the gap compaction (k0
+               written, as the path makes it, and k0 given), extract's
+               first-match call; each against its plain version,
                exactly, with its own bound
      tracing — the slice's three ops with utils.tracing enabled: a
                report row each with calls >= 1 and bytes > 0, results
@@ -196,6 +214,7 @@ from __future__ import annotations
 import calendar
 import collections
 import datetime
+import inspect
 import ipaddress
 import json
 import math
@@ -637,7 +656,7 @@ def _kernel_phase(torch, col, width):
     first shape of each is the one its headline time, bound and library
     time are taken at."""
     from custrings_tpu_torch.column import cumsum0
-    from custrings_tpu_torch.ops import layout, route, scan, window
+    from custrings_tpu_torch.ops import layout, window
     from custrings_tpu_torch.regex import ops as rx
 
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -683,9 +702,14 @@ def _kernel_phase(torch, col, width):
     # K1's yardstick: one index_select of the unmasked u8 windows out of
     # a padded buffer's unfolded view (made outside the timed call)
     unfolded = torch.nn.functional.pad(col.data, (0, width)).unfold(0, width, 1)
-    # K4c at the group representatives: keep and its prefix count read,
-    # the kept elements read, the whole output written
-    reps_kept = int(k0_first[-1])
+    # K4c: the width-64 view's and the group representatives' calls as
+    # the path makes them (k0 written), without k0 and with k0 given,
+    # then its edges
+    compacts = [*_compact_stream_cases(torch, "width-64 view", keep, [col.data], k0,
+                                       ("path", "not wanted", "given")),
+                *_compact_stream_cases(torch, "group representatives", first, [perm], k0_first,
+                                       ("path", "not wanted", "given"), b2b=True),
+                *_compact_edge_shapes(torch, cap)]
     cases = [
         ("scan_sum", "csrc/scan.cu", "custrings_tpu/ops/pallas_scan.py:235", sum_shapes,
          (cap * (1 + 4), cap), lambda: torch.cumsum(col.data, 0, dtype=torch.int32)),
@@ -714,13 +738,7 @@ def _kernel_phase(torch, col, width):
         ("window_words", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170",
          words, words[0][3]["bound"], None),
         ("route_compact", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:290",
-         [(f"u8[{cap}] width-64 view", lambda: route.compact_stream(keep, [col.data], k0)[0][0],
-           lambda: route._compact_plain(keep, k0, col.data)),
-          (f"i64[{n}] group representatives", lambda: route.compact_stream(first, [perm], k0_first)[0][0],
-           lambda: route._compact_plain(first, k0_first, perm),
-           {"bound": (n * (1 + 4 + 8) + 4 + 8 * reps_kept, 0),
-            "library": lambda: torch.masked_select(perm, first), "back_to_back": True})],
-         (cap * (1 + 4 + 1 + 1), 0), lambda: torch.masked_select(col.data, keep)),
+         compacts, compacts[0][3]["bound"], compacts[0][3]["library"]),
         ("route_expand", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:448",
          expansions, expansions[0][3]["bound"], None),
         ("nfa_bits", "csrc/nfa_bits.cu", "custrings_tpu/regex/pallas_nfa.py:418",
@@ -736,7 +754,9 @@ def _kernel_phase(torch, col, width):
          "custrings_tpu/regex/device.py:1171 all_spans)",
          span_cases, span_bound, None),
     ]
-    return _measure(torch, cases, slow=("nfa_bits",), one_plain=("span_all",))
+    recs = _measure(torch, cases, slow=("nfa_bits",), one_plain=("span_all",))
+    _emit({"phase": "compact_stream host", **_compact_host_breakdown(torch, first, perm)})
+    return recs
 
 
 def _words_bound(torch, data, starts, width: int):
@@ -760,7 +780,8 @@ def _words_bound(torch, data, starts, width: int):
 class _Calls:
     """Records the arguments of each call of the given (module, name)
     functions while active, by wrapping each name where its callers look
-    it up: `calls` holds (module.name, args) in call order."""
+    it up: `calls` holds (module.name, args) in call order, keyword
+    arguments bound into their positions."""
 
     def __init__(self, *sites):
         self.sites = sites
@@ -768,9 +789,9 @@ class _Calls:
     def __enter__(self):
         self.calls, self._saved = [], [getattr(m, a) for m, a in self.sites]
         for (m, a), fn in zip(self.sites, self._saved):
-            def recorded(*args, _fn=fn, _site=f"{m.__name__.rsplit('.', 1)[-1]}.{a}"):
-                self.calls.append((_site, args))
-                return _fn(*args)
+            def recorded(*args, _fn=fn, _site=f"{m.__name__.rsplit('.', 1)[-1]}.{a}", **kw):
+                self.calls.append((_site, inspect.signature(_fn).bind(*args, **kw).args if kw else args))
+                return _fn(*args, **kw)
 
             setattr(m, a, recorded)
         return self
@@ -902,6 +923,203 @@ def _window_edge_shapes(torch):
     return [case(*c) for c in window_edge_cases(torch)]
 
 
+#: K4c's tile (csrc/route.cu CSUPER), one look-back step and one read of
+#: a given k0, and its sub-tile (CTILE), the unit it stages and writes
+COMPACT_TILE = 32768
+COMPACT_SUBTILE = 8192
+
+
+def _compacted(res):
+    """compact_stream's (planes, k0 or None) as one flat tuple."""
+    outs, k0 = res
+    return (*outs, k0) if k0 is not None else tuple(outs)
+
+
+def _compact_stream_bound(keep, planes, k0_given: bool, want_k0: bool):
+    """(bytes, ops) of compact_stream(keep, planes, k0, want_k0): keep read
+    (1 B an element), every plane's kept elements read and all its output
+    elements written; k0 read at each tile's start and at n when given
+    (4 B a COMPACT_TILE elements), or written whole (4 B an element and
+    the total) when wanted."""
+    n = keep.shape[0]
+    esum = sum(a.element_size() for a in planes)
+    kept = int(keep.count_nonzero())
+    k0_bytes = 4 * (-(-n // COMPACT_TILE) + 1) if k0_given else 4 * (n + 1) * int(want_k0)
+    return n + kept * esum + n * esum + k0_bytes, 0
+
+
+def compact_edge_cases(torch, device="cuda", rows: int = 1 << 16, cap: int = 167_772_160):
+    """K4c's edge cases on seeded data: [(label, keep, planes, k0 or None,
+    want_k0)].  Lengths of one sub-tile and one tile - 1, + 0 and + 1;
+    densities 0, 1e-4, 0.5 and 1; each element size (uint8, bool, int32,
+    int64) alone and eight mixed planes; unaligned views of the planes and
+    of keep; k0 given, not given and not wanted; n of 0 and 1; a uint8
+    keep with values above 1; and a few calls over `cap` elements.  The
+    CPU tests run it with device="cpu" and a small cap, where
+    compact_stream is its plain version."""
+    rng = np.random.default_rng(14)
+    b8 = torch.from_numpy(rng.integers(0, 256, max(rows, cap) + 256, dtype=np.uint8)).to(device)
+    n32 = rows + 16
+    b32 = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n32, dtype=np.int64).astype(np.int32)).to(device)
+    b64 = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n32, dtype=np.int64)).to(device)
+    bb = torch.from_numpy(rng.random(n32) < 0.5).to(device)
+
+    def keep_of(n, density, off=0):
+        x = torch.from_numpy(rng.random(n + off) < density).to(device)
+        return x[off:]
+
+    def k0_of(keep):
+        k0 = torch.zeros(keep.shape[0] + 1, dtype=torch.int32, device=device)
+        k0[1:] = torch.cumsum(keep.to(torch.int32), 0, dtype=torch.int32)
+        return k0
+
+    def planes(kinds, n, off=0):
+        pick = {"u8": b8, "bool": bb, "i32": b32, "i64": b64}
+        return [pick[k][off: off + n] for k in kinds]
+
+    t = COMPACT_SUBTILE
+    out = []
+    for unit, size in (("sub-tile", t), ("tile", COMPACT_TILE)):
+        for n in (size - 1, size, size + 1):
+            out.append((f"u8[{n}] ({unit}{' - 1' if n < size else ' + 1' if n > size else ''}), density 0.5",
+                        keep_of(n, 0.5), planes(["u8"], n), None, True))
+    for d in (0.0, 1e-4, 0.5, 1.0):
+        out.append((f"u8+i32[{rows}] density {d}", keep_of(rows, d), planes(["u8", "i32"], rows), None, True))
+    odd = rows + 123
+    for kind in ("u8", "bool", "i32", "i64"):
+        n = odd if kind == "u8" else rows
+        out.append((f"{kind}[{n}] alone, density 0.5", keep_of(n, 0.5), planes([kind], n), None, True))
+    eight = ["u8", "bool", "i32", "i64", "u8", "i32", "i64", "bool"]
+    n = rows - 5
+    k8 = keep_of(n, 0.3)
+    for k0, want, how in ((None, True, "k0 written"), (k0_of(k8), True, "k0 given"), (None, False, "k0 not wanted")):
+        out.append((f"eight mixed planes [{n}], {how}", k8, planes(eight, n), k0, want))
+    n = rows - 1
+    out.append((f"u8[{n}] data[1:] and keep[1:]", keep_of(n, 0.5, 1), planes(["u8"], n, 1), None, True))
+    out.append((f"i32[{n}] data[1:] (4 bytes past 16) and keep[1:]", keep_of(n, 0.5, 1), planes(["i32"], n, 1),
+                None, True))
+    out.append((f"i64[{n}] data[1:], keep aligned", keep_of(n, 0.5), planes(["i64"], n, 1), None, True))
+    out.append((f"u8+i32[{rows - 3}] keep[3:], planes aligned", keep_of(rows - 3, 0.5, 3),
+                planes(["u8", "i32"], rows - 3), None, False))
+    n = 3 * t + 17
+    kk = keep_of(n, 0.5)
+    for k0, want, how in ((None, True, "k0 written"), (k0_of(kk), True, "k0 given"), (None, False, "k0 not wanted")):
+        out.append((f"u8+i64[{n}], {how}", kk, planes(["u8", "i64"], n), k0, want))
+    out.append(("u8[0]", keep_of(0, 0.5), planes(["u8"], 0), None, True))
+    for d in (0.0, 1.0):
+        out.append((f"u8+i64[1] density {d}", keep_of(1, d), planes(["u8", "i64"], 1), None, True))
+    one = torch.zeros(rows, dtype=torch.bool, device=device)
+    one[-1] = True
+    out.append((f"i32[{rows}] only the last kept", one, planes(["i32"], rows), None, True))
+    first = one.roll(1)
+    out.append((f"i64[{rows}] only the first kept, k0 given", first, planes(["i64"], rows), k0_of(first), True))
+    u8keep = torch.from_numpy(rng.integers(0, 3, rows).astype(np.uint8)).to(device)
+    out.append((f"u8[{rows}] uint8 keep with values 0..2", u8keep, planes(["u8"], rows), None, True))
+    full = (b8[:cap] & 1) == 0
+    out.append((f"u8[{cap}] density 1e-4, k0 not wanted", keep_of(cap, 1e-4), [b8[:cap]], None, False))
+    out.append((f"u8[{cap}] all kept, k0 given", torch.ones(cap, dtype=torch.bool, device=device), [b8[:cap]],
+                k0_of(torch.ones(cap, dtype=torch.bool, device=device)), True))
+    out.append((f"u8[{cap - 1}] data[1:] and keep[1:], density 0.5", full[1:], [b8[1: cap]], None, True))
+    return out
+
+
+def _compact_edge_shapes(torch, cap: int):
+    """compact_edge_cases on the card as K4c shapes, each held exactly to
+    _compact_plain (every plane and k0) with its own bound."""
+    from custrings_tpu_torch.ops import route
+
+    def case(label, keep, planes, k0, want):
+        return (f"{label}", lambda: _compacted(route.compact_stream(keep, planes, k0, want)),
+                lambda: _compacted(route._compact_plain(keep.bool(), planes, k0, want)),
+                {"bound": _compact_stream_bound(keep, planes, k0 is not None, want)})
+
+    return [case(*c) for c in compact_edge_cases(torch, cap=cap)]
+
+
+def _compact_stream_cases(torch, label, keep, planes, k0, forms, b2b=False):
+    """K4c shapes of one call, compact_stream(keep, planes, ...) in each
+    form of `forms` ("path": k0 not given but wanted, as most of the main
+    path's calls; "not wanted": want_k0=False; "given": the given k0),
+    each held to _compact_plain with its bound and the library call's
+    time (torch.masked_select of each plane)."""
+    from custrings_tpu_torch.ops import route
+
+    args = {"path": (None, True), "not wanted": (None, False), "given": (k0, True)}
+    names = "+".join(str(a.dtype).split(".")[-1] for a in planes)
+    out = []
+    for form in forms:
+        k, want = args[form]
+        extra = {"bound": _compact_stream_bound(keep, planes, k is not None, want),
+                 "library": lambda: tuple(torch.masked_select(a, keep) for a in planes)}
+        if b2b:
+            extra["back_to_back"] = True
+        how = {"path": "k0 written", "not wanted": "k0 not wanted", "given": "k0 given"}[form]
+        out.append((f"{names}[{keep.shape[0]}] {label}, {how}",
+                    lambda k=k, want=want: _compacted(route.compact_stream(keep, planes, k, want)),
+                    lambda k=k, want=want: _compacted(route._compact_plain(keep.bool(), planes, k, want)),
+                    extra))
+    return out
+
+
+def _compact_host_breakdown(torch, keep, plane, reps: int = 400):
+    """The host's time (us a call, mean of `reps` after a warm-up) of
+    compact_stream(keep, [plane]) at the group representatives' i64 call,
+    whole (k0 written, not wanted, given) and by part: the checks and
+    casts, the allocations (the output, and k0 with the status words in
+    one buffer), the argument arrays, the stream lookup, and the ctypes
+    call itself with k0 written (its memset of the status words and the
+    launch) and with k0 given (the launch alone)."""
+    from custrings_tpu_torch import kernels
+    from custrings_tpu_torch.ops import route
+
+    n = keep.shape[0]
+    lib = kernels.lib()
+    k0 = route._compact_plain(keep, [], None, True)[1]
+    out = torch.empty_like(plane)
+    words = lib.cs_compact_scratch_words(n)
+    head = -(-(n + 1) // 4) * 4
+    buf = torch.empty(head + 2 * words, dtype=torch.int32, device=keep.device)
+    stream = kernels.stream_ptr(keep)
+    ins, outs, esz = route._PTRS[1](plane.data_ptr()), route._PTRS[1](out.data_ptr()), route._INTS[1](8)
+    dev = keep.get_device()
+
+    def us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        res = (time.perf_counter() - t0) * 1e6 / reps
+        torch.cuda.synchronize()
+        return res
+
+    def checks():
+        k = route._flag(keep, n, "compact_stream")
+        route._plane(plane, n, dev, "compact_stream")
+        kernels.require_cuda(k, "compact_stream")
+        k0.to(torch.int32).contiguous()
+
+    def allocations():
+        torch.empty_like(plane)
+        torch.empty(head + 2 * words, dtype=torch.int32, device=keep.device)[: n + 1]
+
+    parts = {
+        "whole call, k0 written": us(lambda: route.compact_stream(keep, [plane])),
+        "whole call, k0 not wanted": us(lambda: route.compact_stream(keep, [plane], want_k0=False)),
+        "whole call, k0 given": us(lambda: route.compact_stream(keep, [plane], k0)),
+        "checks and casts": us(checks),
+        "allocations (output; k0 and status words)": us(allocations),
+        "argument arrays": us(lambda: (route._PTRS[1](plane.data_ptr()), route._PTRS[1](out.data_ptr()),
+                                       route._INTS[1](8))),
+        "stream lookup": us(lambda: kernels.stream_ptr(keep)),
+        "ctypes call, k0 written (status memset and launch)": us(lambda: lib.cs_compact(
+            keep.data_ptr(), None, n, 1, ins, outs, esz, buf.data_ptr(), buf.data_ptr() + 4 * head, stream)),
+        "ctypes call, k0 given (launch)": us(lambda: lib.cs_compact(
+            keep.data_ptr(), k0.data_ptr(), n, 1, ins, outs, esz, None, None, stream)),
+    }
+    return {"call": f"i64[{n}] group representatives", "reps": reps, "us_per_call": parts}
+
+
 def _captured_expansions(torch, col):
     """K4e's inputs as the main path passes them: the calls of
     shift_compact.expand_to made by modify.replace_literal(col, "the",
@@ -943,11 +1161,11 @@ def _text_kernel_shapes(torch, strs, device="cuda"):
     DISTANCE_TARGET and of the pairwise distance's other column (K1); the
     key words and tails of unique_tokens' encode and the token key words
     of tokens_counts and replace_tokens (K1b); the whitespace split's
-    compaction, with torch.masked_select's time (K4c).  Returns
+    compaction without k0 (as the split writer asks for it) and with k0
+    given, with torch.masked_select's time (K4c).  Returns
     [(name, source, replaces, shapes)].  The CPU tests run it with
     device="cpu", where each wrapper is its plain version."""
     from custrings_tpu_torch import nvstrings, nvtext
-    from custrings_tpu_torch.column import cumsum0
     from custrings_tpu_torch.ops import array, layout, route, shift_compact, split, unique, window
     from custrings_tpu_torch.text import distance, token
 
@@ -998,18 +1216,17 @@ def _text_kernel_shapes(torch, strs, device="cuda"):
                 lambda: _chunked(torch, lambda i, j: window._words_plain(data, st[i:j], w), rows, 4 * wq),
                 {"bound": _words_bound(torch, data, st, w)})
 
-    keep, (data,) = k4c.calls[0][1]
-    k0 = cumsum0(keep)
-    cap, kept = keep.shape[0], int(k0[-1])
-    compact = (f"u8[{cap}] whitespace split writer ({kept} bytes kept)",
-               lambda: route.compact_stream(keep, [data], k0)[0][0],
-               lambda: route._compact_plain(keep, k0, data),
-               {"bound": (cap * (1 + 4 + 1) + kept, 0), "library": lambda: torch.masked_select(data, keep)})
+    keep, planes, *want = k4c.calls[0][1]
+    if want != [False]:
+        raise AssertionError(f"the whitespace split writer asked for k0: {want}")
+    k0 = route._compact_plain(keep.bool(), [], None, True)[1]
+    label = f"whitespace split writer ({int(k0[-1])} bytes kept)"
+    compacts = _compact_stream_cases(torch, label, keep, planes, k0, ("not wanted", "given"))
     return [("window_bytes", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170",
              [chars(*c) for c in k1]),
             ("window_words", "csrc/window.cu", "custrings_tpu/ops/pallas_window.py:170",
              [words(*c) for c in k1b]),
-            ("route_compact", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:290", [compact])]
+            ("route_compact", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:290", compacts)]
 
 
 def _expand_bound(live, planes, out_cap: int, want_placed: bool):
@@ -1079,8 +1296,8 @@ _GROUP_MARK = "launch check: "
 
 
 def _launch_profile(torch, col):
-    """torch.profiler over main-path calls of K4e, K1b, K6 and K7, all in
-    one session (a record_function range a group): each expand_stream
+    """torch.profiler over main-path calls of K4e, K1b, K6, K7 and K4c, all
+    in one session (a record_function range a group): each expand_stream
     call (with and without placed, one or three planes) must run one
     expand_firsts, one expand_kernel and one fill of a single word (the
     pre-pass's ticket) and nothing else, so no fill of an output; each of
@@ -1088,7 +1305,13 @@ def _launch_profile(torch, col):
     nothing else; each hash_mm3 call one hash_rows kernel and nothing
     else; each compact_bytes call one compact_tiles kernel and one fill
     of its scratch status words (1 + its input tiles, int64) and nothing
-    else: no K3 scan and no fill of an output.  The device kernels are
+    else: no K3 scan and no fill of an output; each compact_stream call
+    (u8 at the capacity without k0, u8 + i32 there with k0 written, eight
+    planes of 1M with k0 given) one compact_stream_tiles kernel, one
+    memset of its status words (cs_compact makes it on the stream, so the
+    host shows no aten fill) when k0 is not given and none when it is, no
+    K3 scan, no fill of an output or of k0, and a route_compact count of
+    one a call.  The device kernels are
     judged on their totals over the session (each kernel belongs to one
     group's calls, the fills to two: their aten ops, host events, are
     judged a group each).  The profiler can drop device records; a total
@@ -1117,9 +1340,19 @@ def _launch_profile(torch, col):
                 lambda: compact.compact_bytes(col.data, space, cap // 2),
                 lambda: compact.compact_bytes(col.data[1:], space[1:], cap - 1)]
     status = {f"[{kernels.lib().cs_compact_bytes_scratch_words(c)}]" for c in (cap, cap - 1)}
+    g = torch.Generator(device="cpu").manual_seed(15)
+    m = 1 << 20
+    few = (torch.rand(m, generator=g) < 0.6).cuda()
+    eight = [col.data[:m], few, col.data[:m].to(torch.int32), col.data[:m].to(torch.int64) << 33,
+             col.data[m: 2 * m], col.offsets[:m], col.offsets[1: m + 1].to(torch.int64), few.roll(1)]
+    few_k0 = route._compact_plain(few, [], None, True)[1]
+    j = torch.arange(cap, dtype=torch.int32, device=col.device)
+    streams = [lambda: route.compact_stream(space, [col.data], want_k0=False),
+               lambda: route.compact_stream(space, [col.data, j]),
+               lambda: route.compact_stream(few, eight, few_k0)]
     cuda = torch.autograd.DeviceType.CUDA
     groups = (("expand_stream", calls), ("ragged_gather_words", words), ("hash_mm3", hashes),
-              ("compact_bytes", compacts))
+              ("compact_bytes", compacts), ("compact_stream", streams))
     for _, fns in groups:
         for fn in fns:
             fn()  # first use
@@ -1132,7 +1365,7 @@ def _launch_profile(torch, col):
                     fn()
                 torch.cuda.synchronize()
     launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("route_expand", "window_words", "hash",
-                                                              "compact_bytes")}
+                                                              "compact_bytes", "route_compact")}
     found = {e.key: e.count for e in prof.key_averages()
              if e.device_type == cuda and e.self_device_time_total > 0 and not e.key.startswith(_GROUP_MARK)}
     # a fill is a FillFunctor kernel or a memset, whichever torch takes;
@@ -1150,10 +1383,12 @@ def _launch_profile(torch, col):
                     fill_counts[name][key] = fill_counts[name].get(key, 0) + 1
     fills = {name: [[shape, c] for (_, shape), c in per.items()] for name, per in fill_counts.items()}
     want = {"expand_firsts": len(calls), "expand_kernel": len(calls), "window_words": len(words),
-            "hash_rows": len(hashes), "compact_tiles": len(compacts), "fill": len(calls) + len(compacts)}
+            "hash_rows": len(hashes), "compact_tiles": len(compacts), "compact_stream_tiles": len(streams),
+            "fill": len(calls) + len(compacts) + 2}  # and compact_stream's two memsets
     want_launched = {"route_expand": len(calls), "window_words": len(words), "hash": len(hashes),
-                     "compact_bytes": len(compacts)}
-    want_fills = {"expand_stream": [["[1]", len(calls)]], "ragged_gather_words": [], "hash_mm3": []}
+                     "compact_bytes": len(compacts), "route_compact": len(streams)}
+    want_fills = {"expand_stream": [["[1]", len(calls)]], "ragged_gather_words": [], "hash_mm3": [],
+                  "compact_stream": []}
 
     def kind(key):
         if "FillFunctor" in key or "Memset" in key:
@@ -3649,11 +3884,11 @@ def _regex_kernel_shapes(torch, strs, device="cuda"):
     own bound: replace_with_backrefs' gap expansion (shift_compact.
     expand_to) and stream_expand_spans' expansion of the first group's
     bytes (route.expand_stream) (K4e), the gap compaction of
-    _replace_frame (K4c, the bytes and their inserted-bytes counts), and
+    _replace_frame (K4c, the bytes and their inserted-bytes counts, k0
+    written as the path asks and given), and
     extract's first-match call (SpanBits.single; K5).  Returns [(name,
     source, replaces, shapes)]; the CPU tests run it with device="cpu"."""
     from custrings_tpu_torch import column
-    from custrings_tpu_torch.column import cumsum0
     from custrings_tpu_torch.ops import route, shift_compact
     from custrings_tpu_torch.regex import ops as rx
     from custrings_tpu_torch.regex.span_bits import SpanBits
@@ -3679,14 +3914,12 @@ def _regex_kernel_shapes(torch, strs, device="cuda"):
 
     k4e = [expand("replace_with_backrefs' gap bytes", *gap[0]),
            expand("stream_expand_spans (group 2's bytes)", *stream[0])]
-    keep, planes = comp[0]
-    k0 = cumsum0(keep)
-    cap, kept = keep.shape[0], int(k0[-1])
-    esum = sum(a.element_size() for a in planes)
-    k4c = (f"u8+i32[{cap}] _replace_frame's gap bytes ({kept} kept)",
-           lambda: tuple(route.compact_stream(keep, planes, k0)[0]),
-           lambda: tuple(route._compact_plain(keep, k0, a) for a in planes),
-           {"bound": (cap * (1 + 4 + esum) + kept * esum, 0)})
+    keep, planes, *want = comp[0]
+    if want not in ([], [True]):
+        raise AssertionError(f"_replace_frame's gap compaction gave up its k0: {want}")
+    k0 = route._compact_plain(keep.bool(), [], None, True)[1]
+    k4c = _compact_stream_cases(torch, f"_replace_frame's gap bytes ({int(k0[-1])} kept)", keep, planes, k0,
+                                ("path", "given"))
     sb, chars, nch, start = k5.calls[0][1][:4]
     n, L = chars.shape
     valid = torch.ones(n, dtype=torch.bool, device=chars.device)
@@ -3700,7 +3933,7 @@ def _regex_kernel_shapes(torch, strs, device="cuda"):
            else first(sb._all_plain), first(sb._all_plain),
            {"bound": _span_all_bound(torch, nch, valid, L, 1, B, E)})
     return [("route_expand", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:448", k4e),
-            ("route_compact", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:290", [k4c]),
+            ("route_compact", "csrc/route.cu", "custrings_tpu/ops/pallas_route.py:290", k4c),
             ("span_all", "csrc/spans.cu", "custrings_tpu/regex/pallas_spans.py:251", [k5c])]
 
 

@@ -56,35 +56,10 @@ constexpr int ZSTEP = THREADS * 16;
 constexpr int64_t ZBLOCKS = 264;
 using lookback::FULL;
 using lookback::Sum;
-
-// bits 0..3: which of the word's four bytes are nonzero
-__device__ __forceinline__ uint32_t nonzero_bits(uint32_t w) {
-  const uint32_t m = __vcmpne4(w, 0u);  // 0xff per nonzero byte
-  return ((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) | ((m >> 28) & 8u);
-}
+using lookback::nonzero_bits;
 
 __device__ __forceinline__ uint32_t word_of(const uint4& q, int i) {
   return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
-}
-
-// zero out[lo, hi) with the zero blocks: aligned 16-byte stores over the
-// body, shared by all of them; byte stores at the ends by the first
-__device__ __forceinline__ void zero_tail(uint8_t* __restrict__ out, int64_t lo, int64_t hi,
-                                          int64_t z, int64_t nz, int tid) {
-  if (lo >= hi) return;
-  const int64_t a16 = lo + (int64_t)((16 - ((uintptr_t)(out + lo) & 15)) & 15);
-  const int64_t b16 = hi - (int64_t)((uintptr_t)(out + hi) & 15);
-  if (a16 >= b16) {
-    if (z == 0) for (int64_t q = lo + tid; q < hi; q += THREADS) out[q] = 0;
-    return;
-  }
-  if (z == 0) {
-    if (lo + tid < a16) out[lo + tid] = 0;
-    if (b16 + tid < hi) out[b16 + tid] = 0;
-  }
-  uint4* body = reinterpret_cast<uint4*>(out + a16);
-  const int64_t words = (b16 - a16) >> 4;
-  for (int64_t i = z * THREADS + tid; i < words; i += nz * THREADS) body[i] = make_uint4(0, 0, 0, 0);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -112,7 +87,7 @@ compact_tiles(const uint8_t* __restrict__ data, const uint8_t* __restrict__ keep
       block_excl = total;
     }
     __syncthreads();
-    zero_tail(out, block_excl < out_cap ? block_excl : out_cap, out_cap, tile - ntiles, nz, tid);
+    lookback::zero_tail<THREADS>(out, block_excl < out_cap ? block_excl : out_cap, out_cap, tile - ntiles, nz, tid);
     return;
   }
 

@@ -1,8 +1,9 @@
 // Decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan
 // with Decoupled Look-back", 2016): the status words through which the
 // tiles of one launch pass their aggregates and inclusive prefixes, and
-// the warp-wide look-back over them.  Used by K3 (scan.cu) and K7
-// (compact.cu).
+// the warp-wide look-back over them.  Used by K3 (scan.cu), K7
+// (compact.cu) and K4c (route.cu); the last two also share the byte-mask
+// test and the zero tail below.
 //
 // A tile's status word holds a flag in its high 32 bits (0: nothing yet,
 // 1: the tile's aggregate, 2: its inclusive prefix) and the 32-bit value
@@ -88,6 +89,39 @@ __device__ __forceinline__ int32_t publish_and_look_back(unsigned long long* sta
   const int32_t excl = look_back<Op>(status, tile, lane);
   if (lane == 0) store_status(status + tile, pack(FLAG_INCLUSIVE, Op::op(excl, aggregate)));
   return excl;
+}
+
+// bits 0..3: which of the word's four bytes are nonzero
+__device__ __forceinline__ uint32_t nonzero_bits(uint32_t w) {
+  const uint32_t m = __vcmpne4(w, 0u);  // 0xff per nonzero byte
+  return ((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) | ((m >> 28) & 8u);
+}
+
+// bit i set where byte i of the 16 is nonzero
+__device__ __forceinline__ uint32_t nonzero_bits16(const uint4& q) {
+  return nonzero_bits(q.x) | nonzero_bits(q.y) << 4 | nonzero_bits(q.z) << 8 | nonzero_bits(q.w) << 12;
+}
+
+// zero out[lo, hi) (bytes) with the zero blocks z of nz, the blocks whose
+// ticket comes after the last tile: aligned 16-byte stores over the body,
+// shared by all of them; byte stores at the ends by the first
+template <int THREADS>
+__device__ __forceinline__ void zero_tail(uint8_t* __restrict__ out, int64_t lo, int64_t hi,
+                                          int64_t z, int64_t nz, int tid) {
+  if (lo >= hi) return;
+  const int64_t a16 = lo + (int64_t)((16 - ((uintptr_t)(out + lo) & 15)) & 15);
+  const int64_t b16 = hi - (int64_t)((uintptr_t)(out + hi) & 15);
+  if (a16 >= b16) {
+    if (z == 0) for (int64_t q = lo + tid; q < hi; q += THREADS) out[q] = 0;
+    return;
+  }
+  if (z == 0) {
+    if (lo + tid < a16) out[lo + tid] = 0;
+    if (b16 + tid < hi) out[b16 + tid] = 0;
+  }
+  uint4* body = reinterpret_cast<uint4*>(out + a16);
+  const int64_t words = (b16 - a16) >> 4;
+  for (int64_t i = z * THREADS + tid; i < words; i += nz * THREADS) body[i] = make_uint4(0, 0, 0, 0);
 }
 
 }  // namespace lookback

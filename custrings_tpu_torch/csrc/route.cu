@@ -1,31 +1,68 @@
 // K4c / K4e: stable stream compaction and monotone stream expansion of
-// flat planes (uint8, int32 or int64 elements).
+// flat planes (uint8, int32 or int64 elements; bool as uint8).
 //
 // Replaces the TPU kernels custrings_tpu/ops/pallas_route.py::_compact_p
 // (body _compact_kernel_factory, via compact_stream) and ::_expand_p (body
 // _expand_kernel_factory, via expand_stream).
 //
-//   compact: out[k0[j]] = in[j] for every kept j, zeros from k0[n] on,
-//            where k0 is the exclusive prefix count of keep (K3)
+//   compact: out[k0[j]] = in[j] for every kept j of every plane, zeros
+//            from k0[n] on, where k0 is the exclusive prefix count of keep
+//            (int32[n + 1], the total at k0[n])
 //   expand:  out[j + dist[j]] = in[j] for every live j whose target lies
 //            in [0, out_cap); placed[t] = 1 where a value landed; zeros
 //            elsewhere
 //
-// Bound on the H100: device-memory bytes.  Compaction reads keep (1 B),
-// k0 (4 B) and the element, and writes the element; expansion reads live
-// (1 B), dist (4 B) and the element, and writes the element and a placed
-// byte.  At the 1M-row tier both run over the 167,772,160-byte capacity.
+// Bound on the H100: device-memory bytes.  Compaction reads keep (1 B an
+// element) and the kept elements of every plane, writes every output
+// element, and reads k0 at the tile starts when the caller gives it or
+// writes it (4 B an element) when the caller wants it; expansion reads
+// live (1 B), and dist (4 B) and the element of each live lane, and writes
+// the element and a placed byte.  At the 1M-row tier both run over the
+// 167,772,160-byte capacity.
 //
 // The TPU version routes each 64K-element tile through log2(T) roll+select
 // rounds in registers and stitches tiles through a VMEM ring buffer,
-// because the TPU has no fast scatter and its grid runs in order.  On
-// Hopper a store to any address is one instruction.
+// because the TPU has no fast scatter and its grid runs in order; it takes
+// each tile's output offset from k0, a K3 scan over the whole input.
 //
-// Compaction: a grid-stride loop, one element per thread per step,
-// coalesced reads of every input plane; the targets are monotone in j,
-// so a warp's 32 stores land on a few neighbouring sectors.  It writes
-// its own zero tail (every j from k0[n] on is a slot no kept element
-// takes).
+// Compaction, one pass over 32,768-element input tiles (K7's design, for
+// planes of 1, 4 and 8 bytes):
+//   * each 256-thread block takes a tile from an atomic counter (tiles
+//     handed out in order, as the look-back needs), or its blockIdx when
+//     the caller gives k0;
+//   * each thread reads its 32 keep bytes of each of the tile's four
+//     8,192-element sub-tiles (two 16-byte loads where keep is aligned and
+//     the sub-tile whole, byte loads otherwise) into a 32-bit mask, the
+//     block scans the counts (a warp scan per sub-tile, then warp 0 over
+//     the 32 (sub-tile, warp) sums), and warp 0 takes the tile's
+//     exclusive offset from the decoupled look-back (lookback.cuh), or
+//     reads it from k0[tile start] when the caller gives k0;
+//   * warp 0 takes the offset while the other warps already stage the
+//     first sub-tile's first plane: a kept element's place in the staging
+//     buffer is its rank in the sub-tile, which does not depend on it;
+//   * then sub-tile by sub-tile, every plane in the same launch: the
+//     sub-tile is read with coalesced 16-byte loads where its address is
+//     aligned (element loads otherwise, and in the last sub-tile), each
+//     kept element is placed at its rank in shared memory, and the run
+//     [excl, excl + count) goes out as aligned 16-byte stores, each
+//     assembled from the staged words by a funnel shift, with element
+//     stores at its two ends; runs of different sub-tiles are disjoint,
+//     so every output element has one writer; when the caller wants k0,
+//     the block writes its part of it (16-byte stores; the last tile the
+//     total at k0[n]): K3's cumsum0 fused in;
+//   * the blocks whose ticket comes after the last tile zero every plane's
+//     tail [total, n): they read the total from k0[n] when given, else
+//     wait for the last tile's inclusive prefix (every tile was handed out
+//     before them, so this cannot deadlock).
+// The look-back folds at most 32 predecessors an L2 round trip, so with a
+// tile of 8,192 elements its front, not the memory, set the pace at the
+// capacity (20,480 tiles); four sub-tiles a tile cut the steps fourfold
+// while the staging buffer stays one sub-tile of the widest plane.  Chosen
+// on the H100 over one and two sub-tiles a tile, 32 to 48 registers (more
+// blocks, with spills), and the first plane's loads issued before the
+// look-back.  A call is one launch, plus one memset of the tile counter and
+// status words when k0 is not given; nothing survives from one call to the
+// next.
 //
 // Expansion, output-driven, so every output slot is written exactly once
 // by the kernel and the caller allocates without filling:
@@ -62,36 +99,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
-
-unsigned grid_for(int64_t n) {
-  int64_t blocks = (n + THREADS - 1) / THREADS;
-  // grid-stride beyond this: 132 SMs x 8 resident 256-thread blocks x 16
-  return (unsigned)(blocks < 16896 ? (blocks > 0 ? blocks : 1) : 16896);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-compact_kernel(const uint8_t* __restrict__ keep, const int32_t* __restrict__ k0,
-               const T* __restrict__ in, int64_t n, T* __restrict__ out) {
-  const int64_t total = k0[n];
-  const int64_t stride = (int64_t)gridDim.x * THREADS;
-  for (int64_t j = (int64_t)blockIdx.x * THREADS + threadIdx.x; j < n;
-       j += stride) {
-    if (keep[j]) out[k0[j]] = in[j];
-    if (j >= total) out[j] = (T)0;
-  }
-}
-
-constexpr int LANES = 8;                            // lanes a thread
-constexpr int TILE = THREADS * LANES;               // lanes a tile
-constexpr int TILES_PER_PRE = THREADS;              // tiles a pre-pass block (a thread each)
 constexpr int MAX_PLANES = 8;
-constexpr int EXPAND_SMEM = 65536;                  // chunk bytes a block
-constexpr int SUFFIX_ITEMS = 16;                    // last block: entries a thread
-constexpr int SCAN_UNROLL = 8;                      // pre-pass: loads in flight a thread
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Planes {
@@ -100,6 +113,284 @@ struct Planes {
   int esz[MAX_PLANES];
   int count;
 };
+
+// ---------------------------------------------------------------------------
+// compaction
+// ---------------------------------------------------------------------------
+
+constexpr int CITEMS = 32;                  // keep lanes a thread a sub-tile: one mask word
+constexpr int CTILE = THREADS * CITEMS;     // 8,192 elements a sub-tile, the staging unit
+constexpr int CSUB = 4;                     // sub-tiles a tile: one look-back for all of them
+constexpr int CSUPER = CSUB * CTILE;        // 32,768 elements a tile, one status word
+constexpr int CWARPS = THREADS / 32;
+constexpr int CUNROLL = 4;                  // 16-byte plane loads in flight a thread
+constexpr int CZSTEP = THREADS * 16;        // tail bytes a zero block stores a step
+constexpr int64_t CZBLOCKS = 264;           // the most zero blocks
+static_assert(CSUB * CWARPS <= 32, "warp 0 scans one (sub-tile, warp) count a lane");
+
+template <int E> struct Elem;
+template <> struct Elem<1> { using T = uint8_t; };
+template <> struct Elem<4> { using T = uint32_t; };
+template <> struct Elem<8> { using T = unsigned long long; };
+
+// word k (of 32 bits) of a register array of uint4s
+__device__ __forceinline__ uint32_t word(const uint4* buf, int k) {
+  const uint4 v = buf[k / 4];
+  return k % 4 == 0 ? v.x : k % 4 == 1 ? v.y : k % 4 == 2 ? v.z : v.w;
+}
+
+// element k of the 16 / E in a 16-byte word
+template <int E>
+__device__ __forceinline__ typename Elem<E>::T elem(const uint4& q, int k) {
+  if constexpr (E == 1) return (uint8_t)(word(&q, k >> 2) >> (8 * (k & 3)));
+  else if constexpr (E == 4) return word(&q, k);
+  else return (unsigned long long)word(&q, 2 * k) | (unsigned long long)word(&q, 2 * k + 1) << 32;
+}
+
+// a sub-tile's keep masks and, for each 32-element group, the sub-tile's
+// kept count before it (shared memory)
+struct Ranks {
+  const uint32_t* mask;
+  const int32_t* before;
+
+  __device__ __forceinline__ bool kept(int e) const { return mask[e >> 5] >> (e & 31) & 1u; }
+  // the kept elements of the sub-tile before element e
+  __device__ __forceinline__ int rank(int e) const {
+    return before[e >> 5] + __popc(mask[e >> 5] & ((1u << (e & 31)) - 1u));
+  }
+};
+
+// one plane of one sub-tile: its kept elements to their ranks in `st`
+// (element r at st[r]), by the threads t0, t0 + stride, ...
+template <int E>
+__device__ __forceinline__ void stage_plane(const uint8_t* __restrict__ in, int64_t base, int sub_n,
+                                            const Ranks& R, uint8_t* st, int t0, int stride) {
+  using T = typename Elem<E>::T;
+  constexpr int PER = 16 / E;        // elements a 16-byte word
+  constexpr int NV = CTILE / PER;    // 16-byte words a sub-tile
+  T* sp = reinterpret_cast<T*>(st);
+  const T* src = reinterpret_cast<const T*>(in) + base;
+  if (sub_n == CTILE && ((uintptr_t)src & 15) == 0) {  // a whole sub-tile, aligned: 16-byte loads
+    const uint4* w = reinterpret_cast<const uint4*>(src);
+    for (int i0 = t0; i0 < NV; i0 += stride * CUNROLL) {
+      uint4 v[CUNROLL];
+#pragma unroll
+      for (int u = 0; u < CUNROLL; ++u)
+        if (i0 + u * stride < NV) v[u] = __ldg(w + i0 + u * stride);
+#pragma unroll
+      for (int u = 0; u < CUNROLL; ++u) {
+        const int i = i0 + u * stride;
+        if (i >= NV) break;
+        const int e0 = i * PER;
+        const uint32_t m = R.mask[e0 >> 5] >> (e0 & 31);
+        if (!(m & ((1u << PER) - 1u))) continue;
+        int r = R.rank(e0);
+#pragma unroll
+        for (int k = 0; k < PER; ++k)
+          if (m >> k & 1u) sp[r++] = elem<E>(v[u], k);
+      }
+    }
+  } else {
+    for (int e = t0; e < sub_n; e += stride)
+      if (R.kept(e)) sp[R.rank(e)] = src[e];
+  }
+}
+
+// the staged run st[0, count) to out[lo, lo + count): element stores up to
+// the first 16-byte boundary of out and from the last, 16-byte stores
+// between, each assembled from the staged words by a funnel shift (the
+// run starts at any address mod 16)
+template <int E>
+__device__ __forceinline__ void write_run(uint8_t* __restrict__ out, int64_t lo, int count,
+                                          const uint8_t* st, int tid) {
+  using T = typename Elem<E>::T;
+  const T* sp = reinterpret_cast<const T*>(st);
+  T* o = reinterpret_cast<T*>(out);
+  const int64_t lob = lo * E, hib = (lo + count) * E;
+  const int64_t a16 = lob + ((16 - ((uintptr_t)(out + lob) & 15)) & 15);
+  const int64_t b16 = hib - (int64_t)((uintptr_t)(out + hib) & 15);
+  if (a16 >= b16) {
+    for (int q = tid; q < count; q += THREADS) o[lo + q] = sp[q];
+    return;
+  }
+  const int head = (int)((a16 - lob) / E), tail = (int)((hib - b16) / E);
+  if (tid < head) o[lo + tid] = sp[tid];
+  if (tid < tail) o[b16 / E + tid] = sp[(b16 - lob) / E + tid];
+  const int d = (int)(a16 - lob);  // the staged byte of out's first aligned byte
+  const uint32_t* sw = reinterpret_cast<const uint32_t*>(st) + (d >> 2);
+  const int sh = 8 * (d & 3);
+  uint4* body = reinterpret_cast<uint4*>(out + a16);
+  const int words = (int)((b16 - a16) >> 4);
+  for (int i = tid; i < words; i += THREADS) {
+    const uint32_t* w = sw + 4 * i;
+    uint4 q;
+    if (d == 0) {
+      q = reinterpret_cast<const uint4*>(w)[0];
+    } else {
+      const uint32_t x0 = w[0], x1 = w[1], x2 = w[2], x3 = w[3], x4 = sh ? w[4] : 0u;
+      q = make_uint4(__funnelshift_r(x0, x1, sh), __funnelshift_r(x1, x2, sh),
+                     __funnelshift_r(x2, x3, sh), __funnelshift_r(x3, x4, sh));
+    }
+    body[i] = q;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
+compact_stream_tiles(const uint8_t* __restrict__ keep, const int32_t* __restrict__ k0_in, int64_t n,
+                     int keep_vec, Planes P, int32_t* __restrict__ k0_out, int64_t ntiles, int64_t nz,
+                     unsigned* __restrict__ counter, unsigned long long* __restrict__ status) {
+  extern __shared__ uint4 stage4[];
+  __shared__ uint32_t s_mask[CSUB][THREADS];
+  __shared__ int32_t s_before[CSUB][THREADS];
+  __shared__ int32_t s_part[32];  // inclusive kept counts over (sub-tile, warp), sub-tile major
+  __shared__ int64_t s_excl;
+  __shared__ int64_t s_tile;
+  uint8_t* st = reinterpret_cast<uint8_t*>(stage4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  if (tid == 0) s_tile = counter != nullptr ? (int64_t)atomicAdd(counter, 1u) : (int64_t)blockIdx.x;
+  __syncthreads();
+  const int64_t tile = s_tile;
+
+  if (tile >= ntiles) {  // a zero block: the total, then every plane's tail
+    if (tid == 0) {
+      int64_t total;
+      if (k0_in != nullptr) {
+        total = (int64_t)(uint32_t)__ldg(k0_in + n);
+      } else {
+        unsigned long long v;
+        while (((v = lookback::load_status(status + ntiles - 1)) >> 32) != 2) __nanosleep(100);
+        total = (int64_t)(uint32_t)v;
+      }
+      s_excl = total < n ? total : n;
+    }
+    __syncthreads();
+    for (int p = 0; p < P.count; ++p)
+      lookback::zero_tail<THREADS>(P.out[p], s_excl * P.esz[p], n * P.esz[p], tile - ntiles, nz, tid);
+    return;
+  }
+
+  // this thread's 32 keep lanes of each sub-tile
+  const int64_t base = tile * CSUPER;
+  uint32_t mask[CSUB];
+#pragma unroll
+  for (int s = 0; s < CSUB; ++s) {
+    const int64_t j0 = base + (int64_t)s * CTILE + (int64_t)tid * CITEMS;
+    if (keep_vec && base + (int64_t)(s + 1) * CTILE <= n) {
+      const uint4* kp = reinterpret_cast<const uint4*>(keep + j0);
+      mask[s] = lookback::nonzero_bits16(__ldg(kp)) | lookback::nonzero_bits16(__ldg(kp + 1)) << 16;
+    } else {
+      mask[s] = 0;
+      for (int k = 0; k < CITEMS && j0 + k < n; ++k)
+        if (keep[j0 + k]) mask[s] |= 1u << k;
+    }
+  }
+
+  // the counts across each warp, then across the (sub-tile, warp) pairs
+  int32_t x[CSUB];
+#pragma unroll
+  for (int s = 0; s < CSUB; ++s) {
+    s_mask[s][tid] = mask[s];
+    x[s] = __popc(mask[s]);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int32_t y = __shfl_up_sync(FULL, x[s], d);
+      if (lane >= d) x[s] += y;
+    }
+    if (lane == 31) s_part[s * CWARPS + warp] = x[s];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int32_t w = lane < CSUB * CWARPS ? s_part[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int32_t y = __shfl_up_sync(FULL, w, d);
+      if (lane >= d) w += y;
+    }
+    if (lane < CSUB * CWARPS) s_part[lane] = w;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < CSUB; ++s) {  // each group's kept count before it in its sub-tile
+    const int q = s * CWARPS + warp;
+    const int32_t sub0 = s > 0 ? s_part[s * CWARPS - 1] : 0;
+    s_before[s][tid] = (q > 0 ? s_part[q - 1] : 0) - sub0 + x[s] - __popc(mask[s]);
+  }
+  __syncthreads();
+
+  // warp 0 takes the tile's offset (the look-back, or k0 at the tile's
+  // start) while the other warps stage the first sub-tile's first plane,
+  // whose ranks do not depend on it
+  if (warp == 0) {
+    if (k0_in != nullptr) {
+      if (lane == 0) s_excl = (int64_t)(uint32_t)__ldg(k0_in + base);
+    } else {
+      const int32_t excl =
+          lookback::publish_and_look_back<lookback::Sum>(status, tile, s_part[CSUB * CWARPS - 1], lane);
+      if (lane == 0) s_excl = (int64_t)(uint32_t)excl;
+    }
+  }
+  bool known = false;  // s_excl seen by every thread (after a barrier)
+  for (int s = 0; s < CSUB; ++s) {
+    const int64_t sb = base + (int64_t)s * CTILE;
+    if (sb >= n) break;
+    const int sub_n = (int)(n - sb < CTILE ? n - sb : CTILE);
+    const int32_t sub0 = s > 0 ? s_part[s * CWARPS - 1] : 0;
+    const int count = s_part[s * CWARPS + CWARPS - 1] - sub0;
+    const Ranks R{s_mask[s], s_before[s]};
+    for (int p = 0; p < P.count && count > 0; ++p) {
+      const int e = P.esz[p];
+      // until the offset is known, warp 0 is busy taking it
+      const int t0 = known ? tid : tid - 32, stride = known ? THREADS : THREADS - 32;
+      if (t0 >= 0) {
+        if (e == 1) stage_plane<1>(P.in[p], sb, sub_n, R, st, t0, stride);
+        else if (e == 4) stage_plane<4>(P.in[p], sb, sub_n, R, st, t0, stride);
+        else stage_plane<8>(P.in[p], sb, sub_n, R, st, t0, stride);
+      }
+      __syncthreads();
+      known = true;
+      const int64_t lo = s_excl + sub0;
+      if (e == 1) write_run<1>(P.out[p], lo, count, st, tid);
+      else if (e == 4) write_run<4>(P.out[p], lo, count, st, tid);
+      else write_run<8>(P.out[p], lo, count, st, tid);
+      __syncthreads();  // before the next plane or sub-tile takes `st`
+    }
+    if (k0_out != nullptr) {  // k0 over the sub-tile
+      if (!known) {
+        __syncthreads();
+        known = true;
+      }
+      int32_t* kd = k0_out + sb;
+      const int32_t ex = (int32_t)(s_excl + sub0);
+      if (sub_n == CTILE) {
+        for (int i = tid; i < CTILE / 4; i += THREADS) {
+          const int e = 4 * i;
+          const uint32_t m = R.mask[e >> 5] >> (e & 31);
+          int4 q;
+          q.x = ex + R.rank(e);
+          q.y = q.x + (int)(m & 1u);
+          q.z = q.y + (int)(m >> 1 & 1u);
+          q.w = q.z + (int)(m >> 2 & 1u);
+          reinterpret_cast<int4*>(kd)[i] = q;
+        }
+      } else {
+        for (int e = tid; e < sub_n; e += THREADS) kd[e] = ex + R.rank(e);
+      }
+    }
+  }
+  if (k0_out != nullptr && tile == ntiles - 1 && tid == 0) k0_out[n] = (int32_t)s_excl + s_part[CSUB * CWARPS - 1];
+}
+
+// ---------------------------------------------------------------------------
+// expansion
+// ---------------------------------------------------------------------------
+
+constexpr int LANES = 8;                            // lanes a thread
+constexpr int TILE = THREADS * LANES;               // lanes a tile
+constexpr int TILES_PER_PRE = THREADS;              // tiles a pre-pass block (a thread each)
+constexpr int EXPAND_SMEM = 65536;                  // chunk bytes a block
+constexpr int SUFFIX_ITEMS = 16;                    // last block: entries a thread
+constexpr int SCAN_UNROLL = 8;                      // pre-pass: loads in flight a thread
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
@@ -299,12 +590,6 @@ __device__ __forceinline__ void load_lanes(uint4* buf, const uint8_t* src, int e
   }
 }
 
-// word k (of 32 bits) of a register array of uint4s
-__device__ __forceinline__ uint32_t word(const uint4* buf, int k) {
-  const uint4 v = buf[k / 4];
-  return k % 4 == 0 ? v.x : k % 4 == 1 ? v.y : k % 4 == 2 ? v.z : v.w;
-}
-
 // the hit lanes of buf (LANES elements of e bytes) into their slots of dst
 __device__ __forceinline__ void scatter_lanes(uint8_t* dst, int e, unsigned hit,
                                               const int* slot, const uint4* buf) {
@@ -464,29 +749,59 @@ expand_kernel(const uint8_t* __restrict__ live, const int32_t* __restrict__ dist
 
 extern "C" {
 
-// elem_bytes: 1, 4 or 8
-int cs_compact(const void* keep, const void* k0, const void* in, int64_t n,
-               int elem_bytes, void* out, void* stream) {
+// int64 words of scratch a compaction of n elements needs when the caller
+// gives no k0: the tile counter, then a status word per tile
+int64_t cs_compact_scratch_words(int64_t n) { return 1 + (n + CSUPER - 1) / CSUPER; }
+
+// Move kept element j (keep[j] nonzero) of every plane to k0[j], zeros
+// from k0[n] on.  keep: uint8[n]; k0_in: int32[n + 1], the exclusive
+// prefix count of keep with the total at k0_in[n], or null, and then
+// scratch holds cs_compact_scratch_words(n) int64 words, 8-byte aligned,
+// which this call zeroes (one memset on the stream) before its launch;
+// in/out: nplanes (0 to 8) pointers of n elements, esz their element bytes
+// (1, 4 or 8; each pointer aligned to its element); k0_out: int32[n + 1],
+// 16-byte aligned, written when not null (with k0_in null).
+int cs_compact(const void* keep, const void* k0_in, int64_t n, int nplanes,
+               const void* const* in, void* const* out, const int* esz, void* k0_out,
+               void* scratch, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint8_t* kp = (const uint8_t*)keep;
-  const int32_t* k = (const int32_t*)k0;
-  switch (elem_bytes) {
-    case 1:
-      compact_kernel<uint8_t><<<grid_for(n), THREADS, 0, s>>>(
-          kp, k, (const uint8_t*)in, n, (uint8_t*)out);
-      break;
-    case 4:
-      compact_kernel<uint32_t><<<grid_for(n), THREADS, 0, s>>>(
-          kp, k, (const uint32_t*)in, n, (uint32_t*)out);
-      break;
-    case 8:
-      compact_kernel<uint64_t><<<grid_for(n), THREADS, 0, s>>>(
-          kp, k, (const uint64_t*)in, n, (uint64_t*)out);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (n >= ((int64_t)1 << 31) || nplanes < 0 || nplanes > MAX_PLANES) return (int)cudaErrorInvalidValue;
+  if (k0_in == nullptr && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)k0_out % 16) return (int)cudaErrorMisalignedAddress;
+  Planes P;
+  P.count = nplanes;
+  int maxe = 1;
+  int64_t bytes = 0;  // of every plane's element
+  for (int p = 0; p < nplanes; ++p) {
+    if (esz[p] != 1 && esz[p] != 4 && esz[p] != 8) return (int)cudaErrorInvalidValue;
+    P.in[p] = (const uint8_t*)in[p];
+    P.out[p] = (uint8_t*)out[p];
+    P.esz[p] = esz[p];
+    maxe = esz[p] > maxe ? esz[p] : maxe;
+    bytes += esz[p];
   }
+  const int64_t ntiles = (n + CSUPER - 1) / CSUPER;
+  int64_t nz = (n * bytes + CZSTEP - 1) / CZSTEP;
+  nz = nz < CZBLOCKS ? nz : CZBLOCKS;
+  // a sub-tile's kept elements of the widest plane, and 16 bytes past them
+  // (a funnel-shifted store reads one word beyond its run)
+  const int smem = CTILE * maxe + 16;
+  if (smem > 40 * 1024) {  // past the default with the static shared memory
+    const cudaError_t e =
+        cudaFuncSetAttribute(compact_stream_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const bool look_back = k0_in == nullptr;
+  if (look_back) {  // the tile counter and the status words start at 0
+    if ((uintptr_t)scratch % 8) return (int)cudaErrorMisalignedAddress;
+    const cudaError_t e = cudaMemsetAsync(scratch, 0, 8 * (size_t)cs_compact_scratch_words(n),
+                                          (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  compact_stream_tiles<<<(unsigned)(ntiles + nz), THREADS, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)keep, (const int32_t*)k0_in, n, (uintptr_t)keep % 16 == 0, P, (int32_t*)k0_out,
+      ntiles, nz, look_back ? (unsigned*)scratch : nullptr,
+      look_back ? (unsigned long long*)scratch + 1 : nullptr);
   return (int)cudaGetLastError();
 }
 

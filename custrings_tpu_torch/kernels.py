@@ -66,7 +66,8 @@ _SIGNATURES = {
     # nfa_bits.cu
     "cs_nfa_bits": ([_P, _P, _P, _I32, _P, _I32, _P, _I64, _I64, _I32, _P, _P], _I32),
     # route.cu
-    "cs_compact": ([_P, _P, _P, _I64, _I32, _P, _P], _I32),
+    "cs_compact_scratch_words": ([_I64], _I64),
+    "cs_compact": ([_P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P], _I32),
     "cs_expand_scratch_words": ([_I64], _I64),
     "cs_expand": ([_P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _P], _I32),
     # spans.cu
@@ -162,9 +163,10 @@ def lib() -> ctypes.CDLL:
 
 
 def stream_ptr(t) -> int:
+    """The current CUDA stream of t's device, as a raw pointer."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, what: str) -> None:
@@ -180,7 +182,7 @@ def require_cuda(t, what: str) -> None:
 
     if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
-    if t.device.index != torch.cuda.current_device():
+    if t.get_device() != torch.cuda.current_device():
         raise ValueError(f"{what}: tensor on {t.device}, current device is another")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")

@@ -143,7 +143,7 @@ def _padded_view_stream_trunc(col: StringColumn, width: int) -> torch.Tensor:
     j = torch.arange(cap, dtype=torch.int32, device=col.device)
     row_start = segments.row_start_positions(col.offsets, cap)
     keep = ((j - row_start) < width) & (j < col.offsets[-1])
-    (cdata,), _ = compact_arrays(keep, [col.data])
+    (cdata,), _ = compact_arrays(keep, [col.data], want_k0=False)
     toff = cumsum0(col.lengths().clamp(max=width))
     return _expand_to_grid(cdata, toff, width, cap)
 

@@ -141,7 +141,7 @@ def _replace_write_route(col: StringColumn, plan, r, m: int, rl: int, bcap: int)
         doff = j - last_start
         rep_zone = inside & (last_start >= 0) & (doff < rl)
         aug = torch.where(rep_zone, _small_lookup(r, doff, rl), col.data) if rl else col.data
-        (data,), _ = shift_compact.compact_arrays(keep | rep_zone, [aug])
+        (data,), _ = shift_compact.compact_arrays(keep | rep_zone, [aug], want_k0=False)
         return _fit(data, bcap), out_offsets
     out_pos = (
         segments.broadcast_rows_to_bytes(out_offsets[:-1], col.offsets, cap)

@@ -3,16 +3,21 @@
 Port of `custrings_tpu/ops/pallas_route.py` (`compact_stream` with the TPU
 kernel `_compact_p` / `_compact_kernel_factory`, `expand_stream` with
 `_expand_p` / `_expand_kernel_factory`).  The CUDA kernels are
-`csrc/route.cu`: the compaction is one scatter per element, since Hopper
-stores to any address in one instruction and the TPU's in-register
-routing network and VMEM ring buffer exist only because the TPU has no
-fast scatter; the expansion is output-driven (a pre-pass finds each input
-tile's first live target, then each block assembles one output chunk of
-every plane in shared memory and writes it once), so its outputs are
-allocated without a fill (only the pre-pass's one-word ticket is zeroed)
-and every plane of a call moves in one launch.
+`csrc/route.cu`.  The compaction is one pass over input tiles: each tile
+counts its kept elements, takes its output offset by decoupled look-back
+(or from the caller's k0 at the tile start), writes its part of k0 when
+the caller wants it, and writes the runs of every plane from shared
+memory with 16-byte stores, while the blocks after the last tile zero
+the tails; so a call is one launch plus one memset of its status words
+(none when k0 is given), and K3 never runs inside it.  The expansion is
+output-driven (a pre-pass finds each input tile's first live target,
+then each block assembles one output chunk of every plane in shared
+memory and writes it once), so its outputs are allocated without a fill
+(only the pre-pass's one-word ticket is zeroed) and every plane of a call
+moves in one launch.
 
-    compact_stream(keep, arrays)           kept elements stably to the
+    compact_stream(keep, arrays, k0, want_k0)
+                                           kept elements stably to the
                                            front, zeros after
     expand_stream(live, dist, arrays, m)   live element j to j + dist[j]
                                            in an output of m slots
@@ -21,80 +26,118 @@ and every plane of a call moves in one launch.
     stream_expand_spans(stream, ...)       a compacted byte stream moved
                                            into per-span output slots
 
-Planes may be uint8/bool, int32 or int64.  A CPU tensor takes the plain
-version below; a CUDA tensor always launches the kernel, at every size
-(the JAX package's ROUTE_MIN routing is not ported).  The TPU tile and
-DMA-alignment parameters (`tile`, `align`) are TPU workarounds and are
-not ported either, nor is `scatter_sorted`, the TPU's stand-in for a
-scatter: `cover_spans` and `stream_expand_spans` place their span
-bounds and deltas with an indexed add.
+Planes may be uint8/bool, int32 or int64, at most 8 a call.  A CPU tensor
+takes the plain version below; a CUDA tensor always launches the kernel,
+at every size (the JAX package's ROUTE_MIN routing is not ported).  The
+TPU tile and DMA-alignment parameters (`tile`, `align`) are TPU
+workarounds and are not ported either, nor is `scatter_sorted`, the TPU's
+stand-in for a scatter: `cover_spans` and `stream_expand_spans` place
+their span bounds and deltas with an indexed add.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import kernels
-from ..column import cumsum0
 from .scan import cumsum_i32
 
 _ELEM_BYTES = {torch.uint8: 1, torch.bool: 1, torch.int32: 4, torch.int64: 8}
+MAX_PLANES = 8
+# the C entry points' argument array types, by plane count
+_PTRS = [ctypes.c_void_p * k for k in range(MAX_PLANES + 1)]
+_INTS = [ctypes.c_int * k for k in range(MAX_PLANES + 1)]
 
 
 def _flag(x: torch.Tensor, n: int, what: str) -> torch.Tensor:
-    """A bool/uint8 mask of n elements as contiguous uint8."""
+    """A bool/uint8 mask of n elements, contiguous (the kernels read
+    either as bytes, nonzero set)."""
     if x.dim() != 1 or x.shape[0] != n or x.dtype not in (torch.bool, torch.uint8):
         raise ValueError(f"{what}: expected a bool[{n}] mask, got {x.dtype}{tuple(x.shape)}")
-    return x.contiguous().view(torch.uint8)
+    return x.contiguous()
 
 
-def _plane(a: torch.Tensor, n: int, device, what: str) -> torch.Tensor:
+def _plane(a: torch.Tensor, n: int, device: int, what: str) -> torch.Tensor:
+    """A contiguous 1-D plane of n elements on `device` (get_device())."""
     if a.dim() != 1 or a.shape[0] != n or a.dtype not in _ELEM_BYTES:
         raise ValueError(f"{what}: expected a 1-D uint8/bool/int32/int64 plane of {n}")
-    if a.device != device:
+    if a.get_device() != device:
         raise ValueError(f"{what}: planes lie on different devices")
     return a.contiguous()
 
 
-def _compact_plain(keep, k0, a):
+def _compact_plain(keep, planes, k0=None, want_k0=True):
+    """compact_stream in plain torch: the CPU path, and the oracle the
+    kernel is held to on the card.  keep: bool[n]; k0: int32[n + 1] or
+    None (then the prefix count is a torch.cumsum)."""
     n = keep.shape[0]
+    if k0 is None:
+        k0 = torch.zeros(n + 1, dtype=torch.int32, device=keep.device)
+        torch.cumsum(keep, 0, dtype=torch.int32, out=k0[1:])
     dest = torch.where(keep, k0[:n], n).to(torch.int64)
-    buf = torch.zeros(n + 1, dtype=a.dtype, device=a.device)
-    buf[dest] = torch.where(keep, a, torch.zeros((), dtype=a.dtype, device=a.device))
-    return buf[:n]
+    outs = []
+    for a in planes:
+        buf = torch.zeros(n + 1, dtype=a.dtype, device=a.device)
+        buf[dest] = torch.where(keep, a, torch.zeros((), dtype=a.dtype, device=a.device))
+        outs.append(buf[:n])
+    return outs, (k0 if want_k0 else None)
 
 
-def _compact_launch(keep, k0, a):
+def _compact_launch(keep, planes, k0, want_k0):
     n = keep.shape[0]
-    out = torch.empty_like(a)
+    outs = [torch.empty_like(a) for a in planes]
     if n == 0:
-        return out
-    for t in (keep, k0, a):
-        kernels.require_cuda(t, "compact_stream")
-    err = kernels.lib().cs_compact(
-        keep.data_ptr(), k0.data_ptr(), a.data_ptr(), n, _ELEM_BYTES[a.dtype],
-        out.data_ptr(), kernels.stream_ptr(a),
+        k0 = torch.zeros(1, dtype=torch.int32, device=keep.device) if k0 is None else k0
+        return outs, k0 if want_k0 else None
+    kernels.require_cuda(keep, "compact_stream")
+    lib = kernels.lib()
+    k0_out = scratch = None
+    if k0 is None:
+        # one allocation: k0 (when wanted) rounded up to 16 bytes, then the
+        # look-back's tile counter and status words, which the C entry
+        # zeroes on the stream
+        head = -(-(n + 1) // 4) * 4 if want_k0 else 0
+        buf = torch.empty(head + 2 * lib.cs_compact_scratch_words(n), dtype=torch.int32, device=keep.device)
+        k0_out = buf[: n + 1] if want_k0 else None
+        scratch = buf.data_ptr() + 4 * head
+    k = len(planes)
+    err = lib.cs_compact(
+        keep.data_ptr(), None if k0 is None else k0.data_ptr(), n, k,
+        _PTRS[k](*[a.data_ptr() for a in planes]), _PTRS[k](*[o.data_ptr() for o in outs]),
+        _INTS[k](*[_ELEM_BYTES[a.dtype] for a in planes]),
+        None if k0_out is None else k0_out.data_ptr(), scratch, kernels.stream_ptr(keep),
     )
     kernels.check(err, "compact_stream")
     kernels.LAUNCHES["route_compact"] += 1
-    return out
+    if not want_k0:
+        return outs, None
+    return outs, k0 if k0 is not None else k0_out
 
 
-def compact_stream(keep: torch.Tensor, arrays, k0: torch.Tensor | None = None):
+def compact_stream(keep: torch.Tensor, arrays, k0: torch.Tensor | None = None, want_k0: bool = True):
     """Stably move kept elements to the front of each array.
 
-    keep: bool[N]; arrays: 1-D planes of length N.  Returns (compacted
-    list, k0) with k0 = int32[N+1] the exclusive prefix count of keep
-    (K3); positions >= k0[-1] of each output are zero."""
+    keep: bool[N] (or uint8, nonzero kept); arrays: 1-D planes of length
+    N, of 1, 4 or 8 bytes an element (mixed), at most 8; k0: the
+    exclusive prefix count of keep, int32[N+1] with the total at k0[N],
+    when the caller has it.  Returns (compacted list, k0), k0 computed
+    here when not given, or None in its place when want_k0 is False;
+    positions >= k0[-1] of each output are zero."""
     n = keep.shape[0]
-    keep8 = _flag(keep, n, "compact_stream")
-    if k0 is None:
-        k0 = cumsum0(keep8)
-    k0 = k0.to(torch.int32).contiguous()
-    planes = [_plane(a, n, keep.device, "compact_stream") for a in arrays]
+    keep = _flag(keep, n, "compact_stream")
+    dev = keep.get_device()
+    planes = [_plane(a, n, dev, "compact_stream") for a in arrays]
+    if len(planes) > MAX_PLANES:
+        raise ValueError(f"compact_stream: at most {MAX_PLANES} planes a call")
+    if k0 is not None:
+        if k0.dim() != 1 or k0.shape[0] != n + 1 or k0.get_device() != dev:
+            raise ValueError(f"compact_stream: k0 must be 1-D of length {n + 1}, beside keep")
+        k0 = k0.to(torch.int32).contiguous()
     if not keep.is_cuda:
-        return [_compact_plain(keep8.bool(), k0, a) for a in planes], k0
-    return [_compact_launch(keep8, k0, a) for a in planes], k0
+        return _compact_plain(keep.bool(), planes, k0, want_k0)
+    return _compact_launch(keep, planes, k0, want_k0)
 
 
 def _expand_plain(live, dist, planes, out_cap, want_placed):
@@ -114,8 +157,6 @@ def _expand_plain(live, dist, planes, out_cap, want_placed):
 
 
 def _expand_launch(live, dist, planes, out_cap, want_placed):
-    import ctypes
-
     n = live.shape[0]
     dev = live.device
     outs = [torch.empty(out_cap, dtype=a.dtype, device=dev) for a in planes]
@@ -130,9 +171,9 @@ def _expand_launch(live, dist, planes, out_cap, want_placed):
     k = len(planes)
     err = lib.cs_expand(
         live.data_ptr(), dist.data_ptr(), n, out_cap, k,
-        (ctypes.c_void_p * k)(*[a.data_ptr() for a in planes]),
-        (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
-        (ctypes.c_int * k)(*[_ELEM_BYTES[a.dtype] for a in planes]),
+        _PTRS[k](*[a.data_ptr() for a in planes]),
+        _PTRS[k](*[o.data_ptr() for o in outs]),
+        _INTS[k](*[_ELEM_BYTES[a.dtype] for a in planes]),
         placed.data_ptr() if want_placed else None, scratch.data_ptr(),
         kernels.stream_ptr(live),
     )
@@ -153,16 +194,16 @@ def expand_stream(live: torch.Tensor, dist: torch.Tensor, arrays, out_cap: int |
     placed bool[out_cap], or None when want_placed is False)."""
     n = live.shape[0]
     m = n if out_cap is None else int(out_cap)
-    live8 = _flag(live, n, "expand_stream")
+    live = _flag(live, n, "expand_stream")
     if dist.dim() != 1 or dist.shape[0] != n:
         raise ValueError(f"expand_stream: dist must be 1-D of length {n}")
     dist = dist.to(torch.int32).contiguous()
-    planes = [_plane(a, n, live.device, "expand_stream") for a in arrays]
-    if not planes or len(planes) > 8:
-        raise ValueError("expand_stream: expected 1 to 8 planes to move")
+    planes = [_plane(a, n, live.get_device(), "expand_stream") for a in arrays]
+    if not planes or len(planes) > MAX_PLANES:
+        raise ValueError(f"expand_stream: expected 1 to {MAX_PLANES} planes to move")
     if not live.is_cuda:
-        return _expand_plain(live8.bool(), dist, planes, m, want_placed)
-    return _expand_launch(live8, dist, planes, m, want_placed)
+        return _expand_plain(live.bool(), dist, planes, m, want_placed)
+    return _expand_launch(live, dist, planes, m, want_placed)
 
 
 def cover_spans(bb: torch.Tensor, ee: torch.Tensor, ok: torch.Tensor, cap: int) -> torch.Tensor:

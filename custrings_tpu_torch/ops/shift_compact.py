@@ -18,13 +18,14 @@ import torch
 from .route import compact_stream, expand_stream
 
 
-def compact_arrays(keep: torch.Tensor, arrays):
+def compact_arrays(keep: torch.Tensor, arrays, want_k0: bool = True):
     """Stably move kept elements to the front of each array.
 
     keep: bool[N]; arrays: 1-D tensors of length N.  Returns (compacted
-    list, k0) with k0 = int32[N+1] the exclusive prefix count of keep;
-    positions >= k0[-1] of each output are zero."""
-    return compact_stream(keep, arrays)
+    list, k0) with k0 = int32[N+1] the exclusive prefix count of keep, or
+    None in its place when want_k0 is False (the kernel then writes no
+    prefix plane); positions >= k0[-1] of each output are zero."""
+    return compact_stream(keep, arrays, want_k0=want_k0)
 
 
 def expand_to(live: torch.Tensor, dist: torch.Tensor, arrays, out_cap: int,

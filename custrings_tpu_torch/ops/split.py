@@ -96,7 +96,7 @@ def _ragged_write(col: StringColumn, starts, byte_off, bcap: int) -> torch.Tenso
     stable compaction of the covered source bytes (K4c), at every size."""
     sizes = byte_off[1:] - byte_off[:-1]
     keep = cover_spans(starts, starts + sizes, sizes > 0, col.capacity)
-    (data,), _ = shift_compact.compact_arrays(keep, [col.data])
+    (data,), _ = shift_compact.compact_arrays(keep, [col.data], want_k0=False)
     return _fit(data, bcap)
 
 
@@ -225,7 +225,7 @@ def _delim_extents_stream(col: StringColumn, tcap, delim: str, maxsplit: int, ta
     if tcap is None:
         return counts
     j = torch.arange(cap, dtype=torch.int32, device=dev)
-    (dpos,), _ = shift_compact.compact_arrays(picked, [j])
+    (dpos,), _ = shift_compact.compact_arrays(picked, [j], want_k0=False)
     dpos = _fit(dpos, tcap)
     tok_off = cumsum0(counts)
     dof = cumsum0(dpr)

@@ -10,6 +10,7 @@
     python3 profile_slice.py --ops convert # the per-op rows of the conversion ops
     python3 profile_slice.py --ops category  # the per-op rows of the category ops
     python3 profile_slice.py --ops regex   # the per-op rows of the regex ops
+    python3 profile_slice.py --compact     # compact_arrays at K4c's main-path calls
 
 For each op of the slice (contains_re(#\\w+), replace_literal("the",
 "THE"), dictionary_encode, the growing and shrinking replace_literal
@@ -61,6 +62,18 @@ matchers call only the package's
 entry points, so they time an earlier tree's package the same way, with
 that tree's package first on sys.path.  One JSON line each, after one
 naming the package's directory.
+
+`--compact` times shift_compact.compact_arrays, the entry point of the
+package's compactions, at K4c's main-path calls on the tweet rows: the
+width-64 view's u8[capacity] keep, the group representatives'
+i64[1M], _replace_frame's gap compaction of the bytes and their
+inserted-bytes counts (captured from replace_with_backrefs) and the
+whitespace split writer's (captured from split_record(None) on
+chip_smoke.make_text_rows()): CUDA event ms (median of 5) and 20 calls
+back to back with the host's time a call, k0 written and, where the
+package's compact_arrays takes want_k0, without k0.  It calls only the
+package's entry points, so an earlier tree's package (first on sys.path)
+is timed the same way, in turns with this one in one call.
 
 `--ops a,b,...` runs the per-op rows of the named ops alone (names as in
 the op table in main(); `text` names every text op, `clean` every clean
@@ -127,6 +140,41 @@ def all_spans_part(torch, strs) -> None:
             }), flush=True)
 
 
+def compact_part(torch, strs) -> None:
+    """compact_arrays at K4c's main-path calls, one JSON line a call and
+    form (see the module's note)."""
+    import inspect
+
+    from custrings_tpu_torch import column
+    from custrings_tpu_torch.ops import layout, shift_compact, split
+    from custrings_tpu_torch.regex import ops as rx
+
+    col = column.from_host_strings(strs, "cuda")
+    keep, _, _, _ = cs._route_inputs(torch, col, layout.max_row_bytes(col))
+    g = torch.Generator(device="cpu").manual_seed(0)
+    torch.randint(-(1 << 30), 1 << 30, (col.size,), generator=g, dtype=torch.int32)  # chip_smoke's draws
+    perm = torch.randperm(col.size, generator=g).cuda()
+    first = torch.rand(col.size, generator=g).cuda() < 0.6
+    with cs._Calls((shift_compact, "compact_arrays")) as gap:
+        rx.replace_with_backrefs(col, cs.REGEX_EMAIL, cs.REGEX_SWAP)
+    text = column.from_host_strings(cs.make_text_rows(strs), "cuda")
+    with cs._Calls((shift_compact, "compact_arrays")) as ws:
+        split.split_record(text, None)
+    calls = [("width-64 view", keep, [col.data]), ("group representatives", first, [perm]),
+             ("_replace_frame's gap bytes", *gap.calls[0][1][:2]),
+             ("whitespace split writer", *ws.calls[0][1][:2])]
+    takes_want = "want_k0" in inspect.signature(shift_compact.compact_arrays).parameters
+    for label, k, planes in calls:
+        forms = [("k0 written", {})] + ([("k0 not wanted", {"want_k0": False})] if takes_want else [])
+        for how, kw in forms:
+            fn = lambda k=k, planes=planes, kw=kw: shift_compact.compact_arrays(k, planes, **kw)  # noqa: E731
+            b2b, host = cs._back_to_back_ms(torch, fn)
+            names = "+".join(str(a.dtype).split(".")[-1] for a in planes)
+            print(json.dumps({"part": "compact", "call": f"{names}[{k.shape[0]}] {label}", "form": how,
+                              "ms": cs._time_ms(torch, fn), "ms_back_to_back": b2b,
+                              "host_ms_back_to_back": host}), flush=True)
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -139,6 +187,10 @@ def main() -> int:
     print(json.dumps({"package": custrings_tpu_torch.__path__[0]}), flush=True)
     if "--all-spans" in sys.argv[1:]:
         all_spans_part(torch, cs.make_corpus(cs.ROWS, seed=0))
+        print(cs._nvidia_smi(), flush=True)
+        return 0
+    if "--compact" in sys.argv[1:]:
+        compact_part(torch, cs.make_corpus(cs.ROWS, seed=0))
         print(cs._nvidia_smi(), flush=True)
         return 0
     from custrings_tpu_torch import category, column, numeric

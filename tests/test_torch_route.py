@@ -24,6 +24,7 @@ from custrings_tpu_torch.ops import route as troute
 from custrings_tpu_torch.ops import shift_compact as tshift
 from custrings_tpu_torch.ops import unique as tuq
 
+import chip_smoke as CS
 from test_torch_slice import CORPUS
 from test_torch_window import MIXED
 
@@ -53,6 +54,110 @@ def test_compact_stream_matches_pallas(n, density):
     (s8,), sk0 = tshift.compact_arrays(torch.from_numpy(keep), [torch.from_numpy(data)])
     np.testing.assert_array_equal(s8.numpy(), np.asarray(w8))
     np.testing.assert_array_equal(sk0.numpy(), np.asarray(wk0))
+
+
+def _np_compact(keep, planes):
+    """numpy's compaction: each plane's kept elements stably to the front,
+    zeros after, and the exclusive prefix count with the total."""
+    keep = np.asarray(keep).astype(bool)
+    outs = []
+    for a in planes:
+        out = np.zeros_like(a)
+        kept = a[keep]
+        out[: kept.shape[0]] = kept
+        outs.append(out)
+    return outs, np.concatenate([[0], np.cumsum(keep)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 300])
+def test_compact_stream_k0_forms_and_views_match_pallas(n):
+    """On views with a storage offset (data[1:], keep[1:]): want_k0=False
+    gives the same planes and None for k0, a given k0 the same as one
+    computed, and compact_arrays passes want_k0 through."""
+    rng = np.random.default_rng(40 + n)
+    keep_full = rng.random(n + 1) < 0.5
+    data_full = rng.integers(0, 256, n + 1).astype(np.uint8)
+    v32 = rng.integers(-(2**30), 2**30, n).astype(np.int32)
+    (w8, w32), wk0 = jroute.compact_stream(
+        jnp.asarray(keep_full[1:]), [jnp.asarray(data_full[1:]), jnp.asarray(v32)], tile=256
+    )
+    keep, data = torch.from_numpy(keep_full)[1:], torch.from_numpy(data_full)[1:]
+    assert keep.storage_offset() == 1 and data.storage_offset() == 1
+    planes = [data, torch.from_numpy(v32)]
+    written, k0 = troute.compact_stream(keep, planes)
+    unwanted, none = troute.compact_stream(keep, planes, want_k0=False)
+    given, k0_given = troute.compact_stream(keep, planes, k0)
+    assert none is None and torch.equal(k0_given, k0)
+    np.testing.assert_array_equal(k0.numpy(), np.asarray(wk0))
+    for g8, g32 in (written, unwanted, given):
+        np.testing.assert_array_equal(g8.numpy(), np.asarray(w8))
+        np.testing.assert_array_equal(g32.numpy(), np.asarray(w32))
+    (s8,), s_none = tshift.compact_arrays(keep, [data], want_k0=False)
+    assert s_none is None
+    np.testing.assert_array_equal(s8.numpy(), np.asarray(w8))
+
+
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_compact_stream_eight_mixed_planes(density):
+    """Eight planes of every element type (the JAX kernel takes none of
+    bool or int64, so numpy is the reference), all or none kept too, with
+    k0 written, given and not wanted."""
+    n = 700
+    rng = np.random.default_rng(int(density * 10) + 50)
+    keep = rng.random(n) < density
+    planes = [rng.integers(0, 256, n).astype(np.uint8), rng.random(n) < 0.5,
+              rng.integers(-(2**31), 2**31, n).astype(np.int32), rng.integers(-(2**62), 2**62, n),
+              rng.integers(0, 256, n).astype(np.uint8), rng.integers(-9, 9, n).astype(np.int32),
+              rng.integers(-(2**40), 2**40, n), rng.random(n) < 0.1]
+    want, wk0 = _np_compact(keep, planes)
+    tk, tp = torch.from_numpy(keep), [torch.from_numpy(a) for a in planes]
+    for k0, want_k0 in ((None, True), (torch.from_numpy(wk0), True), (None, False)):
+        got, k0_out = troute.compact_stream(tk, tp, k0, want_k0)
+        assert [g.dtype for g in got] == [a.dtype for a in tp]
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g.numpy(), w)
+        if want_k0:
+            np.testing.assert_array_equal(k0_out.numpy(), wk0)
+        else:
+            assert k0_out is None
+
+
+def test_compact_stream_empty_and_refusals():
+    """n = 0 gives empty planes and k0 = [0]; more than eight planes and a
+    k0 of the wrong length are refused."""
+    keep = torch.zeros(0, dtype=torch.bool)
+    (out,), k0 = troute.compact_stream(keep, [torch.zeros(0, dtype=torch.uint8)])
+    assert out.shape == (0,) and k0.tolist() == [0]
+    assert troute.compact_stream(keep, [torch.zeros(0, dtype=torch.int64)], want_k0=False)[1] is None
+    keep = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="at most 8"):
+        troute.compact_stream(keep, [torch.zeros(4, dtype=torch.uint8)] * 9)
+    with pytest.raises(ValueError, match="k0"):
+        troute.compact_stream(keep, [torch.zeros(4, dtype=torch.uint8)], torch.zeros(4, dtype=torch.int32))
+
+
+def test_compact_edge_cases_on_cpu():
+    """chip_smoke.compact_edge_cases (the cases the card runs; here with a
+    small capacity, each wrapper its plain version) against numpy: every
+    plane and k0, None where k0 is not wanted."""
+    cases = CS.compact_edge_cases(torch, device="cpu", cap=2 * CS.COMPACT_TILE + 77)
+    assert len(cases) >= 30
+    labels = " | ".join(c[0] for c in cases)
+    for part in ("(sub-tile - 1)", "(sub-tile + 1)", "(tile - 1)", "(tile + 1)", "density 0.0", "density 0.0001", "density 1.0", "eight mixed planes",
+                 "k0 given", "k0 not wanted", "data[1:]", "keep[3:]", "u8[0]", "[1] density", "bool[",
+                 "i64[", "uint8 keep"):
+        assert part in labels, part
+    for label, keep, planes, k0, want_k0 in cases:
+        want, wk0 = _np_compact(keep.numpy(), [a.numpy() for a in planes])
+        got, k0_out = troute.compact_stream(keep, planes, k0, want_k0)
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=label)
+        if want_k0:
+            np.testing.assert_array_equal(k0_out.numpy(), wk0, err_msg=label)
+        else:
+            assert k0_out is None, label
+        bound = CS._compact_stream_bound(keep, planes, k0 is not None, want_k0)[0]
+        assert bound >= keep.shape[0] * (1 + sum(a.element_size() for a in planes)), label
 
 
 @pytest.mark.parametrize("n", [256, 500, 5000])

@@ -258,5 +258,7 @@ def test_chip_smoke_text_kernel_captures():
         assert any(op in label for label in labels), (op, labels)
     for shapes in cases.values():
         for label, kern, plain, extra in shapes:
-            assert torch.equal(kern(), plain()), label
+            a, b = kern(), plain()  # K4c's cases give every plane and k0
+            a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+            assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True)), label
             assert extra["bound"][0] > 0, label
