@@ -196,8 +196,28 @@ Phases, each printing one JSON line:
      tracing — the slice's three ops with utils.tracing enabled: a
                report row each with calls >= 1 and bytes > 0, results
                identical to the untraced run
- 12. launches — each path's kernel counters (reset just before the path,
-               read just after) are above zero for the kernels it runs;
+ 12. parallel — custrings_tpu_torch.parallel on a world of one over NCCL
+               (parallel.runtime.init_runtime with a FileStore in this
+               process): shard_global of the 1M tweet rows, then
+               replace("the", "THEIR!") (growing) and to_column,
+               contains_re(r"#\w+") with its job total, categorize() and
+               unique_tokens(); shard_global and categorize() of the 1M
+               category rows; every row against str.replace, re, the
+               sorted keyset (_category_oracle) and ws_split
+               (token_oracle), and the values and token ids against the
+               single-device nvcategory.from_strings and encode of
+               tokenize on the same card, each op's ms beside the
+               single-device op's, the phase's peak memory
+     parallel_gloo — a world of two over gloo, both ranks on the card in
+               processes of their own (`chip_smoke.py --parallel-rank`),
+               each first checking that gloo moves CUDA tensors for
+               all_gather, all_to_all_single at uneven splits and
+               all_reduce; the same ops on 2^16 rows of each corpus and
+               on 2^16 sorted k%06d keys (each rank's keys one owner's
+               range), the ranks' results joined and held to the oracles
+ 13. launches — each path's kernel counters (reset just before the path,
+               read just after) are above zero for the kernels it runs
+               (the parallel path's: the world of one's);
                K3 sum's launches are also split by input size
 Then the kernels JSON line, the nvidia-smi line, and the final
 {"ok": true, "device": {...}} line.  Any failure exits nonzero.
@@ -3977,6 +3997,270 @@ def _driven(torch, kernels, run, strs):
     return res, {**kernels.LAUNCHES, "scan_sum_by_size": dict(kernels.SCAN_SUM_SIZES)}
 
 
+PARALLEL_REPLACE = ("the", "THEIR!")
+#: rows of each corpus in the two-rank gloo job
+PARALLEL_RANK_ROWS = 1 << 16
+#: a hung two-rank job fails the phase after this many seconds
+PARALLEL_RANK_TIMEOUT = 300
+
+
+def token_oracle(strs):
+    """(the global id of every whitespace token in row order, the unique
+    count): a token's rank among the sorted (UTF-8 byte order) unique
+    tokens, whitespace being code points <= 0x20 (ws_split)."""
+    toks = [t for s in strs if s is not None for t in ws_split(s, -1) if t]
+    uniq = sorted(set(toks), key=lambda t: t.encode("utf-8"))
+    rank = {t: i for i, t in enumerate(uniq)}
+    return [rank[t] for t in toks], len(uniq)
+
+
+def skewed_rows(n: int):
+    """Sorted distinct keys: in row shards each rank's keys form one range."""
+    return [f"k{i:06d}" for i in range(n)]
+
+
+def _sharded_ops(sc, step):
+    """The sharded path on one column: replace (growing) and to_column,
+    contains_re(PATTERN) with its job total, categorize, unique_tokens; the
+    results as host lists of this rank's alive rows (ids: its tokens)."""
+    grown = step("replace", lambda: sc.replace(*PARALLEL_REPLACE))
+    back = step("to_column", grown.to_column)
+    mask, total = step("contains_re", lambda: sc.contains_re(PATTERN))
+    values, nkeys = step("categorize", sc.categorize)
+    ids, nuniq = step("unique_tokens", sc.unique_tokens)
+    from custrings_tpu_torch import column
+
+    n = int(sc.alive.sum())
+    return {"replaced": column.to_host_strings(back), "mask": mask[:n].tolist(), "total": total,
+            "values": values[:n].tolist(), "keys": nkeys, "ids": ids[ids >= 0].tolist(), "unique": nuniq}
+
+
+def _categorized(sc, step, name):
+    values, n = step(name, sc.categorize)
+    return {"values": values[: int(sc.alive.sum())].tolist(), "keys": n}
+
+
+def _parallel_path(torch, strs, cat_rows, mesh):
+    """The sharded path on a world of one (NCCL): shard_global of the
+    tweets and the sharded ops, then shard_global and categorize of the
+    category rows.  Returns (results, per-op seconds)."""
+    from custrings_tpu_torch.parallel import runtime
+
+    times = {}
+    step = _stepper(torch, times)
+    sc = step("shard_global", lambda: runtime.shard_global(strs, mesh))
+    res = _sharded_ops(sc, step)
+    del sc
+    cat = step("shard_global(category)", lambda: runtime.shard_global(cat_rows, mesh))
+    res["category"] = _categorized(cat, step, "categorize(category)")
+    return res, times
+
+
+def _single_chip(torch, strs, cat_rows):
+    """The same ops on one device without the mesh: (results, seconds)."""
+    from custrings_tpu_torch import column, nvcategory, nvstrings
+    from custrings_tpu_torch.ops import modify, unique
+    from custrings_tpu_torch.regex import ops as rops
+    from custrings_tpu_torch.text import token
+
+    times = {}
+    step = _stepper(torch, times)
+    col = step("from_host_strings", lambda: column.from_host_strings(strs, "cuda"))
+    step("replace", lambda: modify.replace_literal(col, *PARALLEL_REPLACE))
+    step("contains_re", lambda: rops.contains_re(col, PATTERN))
+    s = nvstrings.to_device(strs, device="cuda")
+    cat = step("categorize", lambda: nvcategory.from_strings(s))
+    _, ids = step("unique_tokens", lambda: unique.dictionary_encode(token.tokenize(col)))
+    c = nvstrings.to_device(cat_rows, device="cuda")
+    ccat = step("categorize(category)", lambda: nvcategory.from_strings(c))
+    return {"values": cat.values(), "ids": ids.tolist(), "category": ccat.values()}, times
+
+
+def _check_parallel(strs, cat_rows, res, single=None):
+    """Mismatched rows of a sharded run (its ranks' results joined in rank
+    order) against the Python oracles and, where given, the single-device
+    run."""
+    rx = re.compile(PATTERN)
+    hits = [s is not None and rx.search(s) is not None for s in strs]
+    _, want_values = _category_oracle(strs)
+    _, want_cat = _category_oracle(cat_rows)
+    want_ids, want_unique = token_oracle(strs)
+    bad = {
+        "replace": _mismatches(res["replaced"], [None if s is None else s.replace(*PARALLEL_REPLACE)
+                                                 for s in strs]),
+        "contains": _mismatches(res["mask"], hits) + int(res["total"] != sum(hits)),
+        "categorize": _mismatches(res["values"], want_values) + int(res["keys"] != len(set(strs))),
+        "unique_tokens": _mismatches(res["ids"], want_ids) + int(res["unique"] != want_unique),
+        "categorize(category)": (_mismatches(res["category"]["values"], want_cat)
+                                 + int(res["category"]["keys"] != len(set(cat_rows)))),
+    }
+    if single is not None:
+        bad["categorize vs single"] = _mismatches(res["values"], single["values"])
+        bad["unique_tokens vs single"] = _mismatches(res["ids"], single["ids"])
+        bad["categorize(category) vs single"] = _mismatches(res["category"]["values"], single["category"])
+    return bad
+
+
+def _gloo_cuda_check(torch, group, S: int, me: int, device):
+    """gloo takes tensors on `device` for all_gather, all_to_all_single at
+    uneven splits and all_reduce, and moves them right."""
+    import torch.distributed as dist
+
+    x = torch.arange(3, dtype=torch.int32, device=device) + 10 * me
+    got = x.new_empty(3 * S)
+    dist.all_gather_into_tensor(got, x, group=group)
+    send = [me + 1 + k for k in range(S)]
+    recv = [k + 1 + me for k in range(S)]
+    out = x.new_empty(sum(recv))
+    dist.all_to_all_single(out, torch.full((sum(send),), me, dtype=torch.int32, device=device),
+                           output_split_sizes=recv, input_split_sizes=send, group=group)
+    t = torch.tensor([me + 1], dtype=torch.int64, device=device)
+    dist.all_reduce(t, group=group)
+    ok = (got.tolist() == [i + 10 * r for r in range(S) for i in range(3)]
+          and out.tolist() == [r for r in range(S) for _ in range(r + 1 + me)]
+          and int(t) == S * (S + 1) // 2 and got.device == out.device == t.device == torch.device(device))
+    if not ok:
+        raise AssertionError(f"gloo moved {device} tensors wrongly: {got.tolist()} {out.tolist()} {int(t)}")
+
+
+def _parallel_rank(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of the gloo job: `chip_smoke.py --parallel-rank RANK WORLD
+    STORE OUT`.  Every rank drives the one card; writes its results to
+    OUT/rank{RANK}.json."""
+    from datetime import timedelta
+
+    import torch
+
+    from custrings_tpu_torch.parallel import dist as pdist
+    from custrings_tpu_torch.parallel import runtime
+
+    runtime.init_runtime(f"file://{store}", world, rank, backend="gloo",
+                         timeout=timedelta(seconds=PARALLEL_RANK_TIMEOUT))
+    mesh = runtime.global_mesh()
+    group, S, me = pdist._group(mesh, "data")
+    _gloo_cuda_check(torch, group, S, me, runtime.device())
+    times = {}
+    step = _stepper(torch, times)
+    rows = PARALLEL_RANK_ROWS
+    res = _sharded_ops(runtime.shard_global(make_corpus(rows, seed=0), mesh), step)
+    cat = make_category_rows(rows, seed=8, b_rows=1)[0]
+    res["category"] = _categorized(runtime.shard_global(cat, mesh), step, "categorize(category)")
+    res["skewed"] = _categorized(runtime.shard_global(skewed_rows(rows), mesh), step, "categorize(skewed)")
+    res["ms"] = {k: v * 1e3 for k, v in times.items()}
+    runtime.shutdown()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _parallel_ranks(world: int):
+    """Run the gloo job of `world` ranks in processes of their own: each
+    rank's results, in rank order."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("LOCAL_RANK", "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+        cmd = [sys.executable, os.path.abspath(__file__), "--parallel-rank"]
+        procs = [subprocess.Popen([*cmd, str(r), str(world), os.path.join(tmp, "store"), tmp],
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for r in range(world)]
+        deadline = time.monotonic() + PARALLEL_RANK_TIMEOUT
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0].decode())
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} of the gloo job failed:\n{log[-4000:]}")
+        return [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+
+
+def _joined(ranks):
+    """The ranks' results as one run's: rows and tokens in rank order."""
+    res = {"replaced": ranks[0]["replaced"], "total": ranks[0]["total"], "keys": ranks[0]["keys"],
+           "unique": ranks[0]["unique"]}
+    for k in ("mask", "values", "ids"):
+        res[k] = [x for r in ranks for x in r[k]]
+    for k in ("category", "skewed"):
+        res[k] = {"values": [x for r in ranks for x in r[k]["values"]], "keys": ranks[0][k]["keys"]}
+    res["agree"] = all(r[k] == ranks[0][k] for r in ranks for k in ("replaced", "total", "keys", "unique"))
+    return res
+
+
+def _check_parallel_ranks(ranks):
+    rows = PARALLEL_RANK_ROWS
+    res = _joined(ranks)
+    strs = make_corpus(rows, seed=0)
+    bad = _check_parallel(strs, make_category_rows(rows, seed=8, b_rows=1)[0], res)
+    skewed = skewed_rows(rows)
+    bad["categorize(skewed)"] = (_mismatches(res["skewed"]["values"], list(range(rows)))
+                                 + int(res["skewed"]["keys"] != rows))
+    bad["ranks disagree"] = int(not res["agree"])
+    return bad
+
+
+def _parallel_phase(torch, kernels, strs, t_main):
+    """The parallel path: a world of one over NCCL on the card at ROWS
+    rows of the tweets and of the category rows, launch-counted, each row
+    held to the oracles and to the single-device ops; then a world of two
+    over gloo, both ranks on the card, at PARALLEL_RANK_ROWS rows.
+    Returns the world of one's launch counts."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from custrings_tpu_torch.parallel import runtime
+
+    t_par = time.perf_counter()
+    cat_rows = make_category_rows(ROWS, seed=8, b_rows=1)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        runtime.init_runtime(f"file://{os.path.join(tmp, 'store')}", 1, 0,
+                             timeout=timedelta(seconds=PARALLEL_RANK_TIMEOUT))
+        try:
+            mesh = runtime.global_mesh()
+            backend = dist.get_backend()
+            _parallel_path(torch, strs[:4096], cat_rows[:4096], mesh)  # first use
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            (res, times), launches = _driven(
+                torch, kernels, lambda torch, _: _parallel_path(torch, strs, cat_rows, mesh), None)
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            runtime.shutdown()
+    torch.cuda.empty_cache()
+    single, single_times = _single_chip(torch, strs, cat_rows)
+    t_check = time.perf_counter()
+    bad = _check_parallel(strs, cat_rows, res, single)
+    _emit({"phase": "parallel", "world": 1, "backend": backend, "rows": ROWS, "category_rows": ROWS,
+           "ms": {k: v * 1e3 for k, v in times.items()},
+           "single_device_ms": {k: v * 1e3 for k, v in single_times.items()},
+           "max_memory_allocated": peak, "allocated_before_phase": held,
+           "keys": res["keys"], "category_keys": res["category"]["keys"],
+           "tokens": len(res["ids"]), "unique_tokens": res["unique"], "matches": res["total"],
+           "oracle_seconds": time.perf_counter() - t_check, "phase_seconds": time.perf_counter() - t_par,
+           "script_seconds_before_phase": t_par - t_main, "mismatches": bad})
+    if any(bad.values()):
+        raise AssertionError(f"the sharded path disagrees with its oracles: {bad}")
+    del res, single
+    torch.cuda.empty_cache()
+
+    t_two = time.perf_counter()
+    ranks = _parallel_ranks(2)
+    bad = _check_parallel_ranks(ranks)
+    _emit({"phase": "parallel_gloo", "world": 2, "backend": "gloo", "device": "cuda:0 (both ranks)",
+           "rows": PARALLEL_RANK_ROWS, "ms_by_rank": [r["ms"] for r in ranks],
+           "keys": ranks[0]["keys"], "unique_tokens": ranks[0]["unique"],
+           "tokens_by_rank": [len(r["ids"]) for r in ranks],
+           "seconds": time.perf_counter() - t_two, "mismatches": bad})
+    if any(bad.values()):
+        raise AssertionError(f"the two-rank sharded path disagrees with its oracles: {bad}")
+    return launches
+
+
 #: the kernels each path must launch at 1M rows
 SLICE_KERNELS = ("scan_sum", "scan_max", "window_bytes", "window_words", "nfa_bits",
                  "route_compact", "route_expand")
@@ -3989,11 +4273,15 @@ CLEAN_KERNELS = ("scan_sum", "route_compact", "route_expand", "window_bytes", "w
 CONVERT_KERNELS = ("scan_sum", "scan_max", "window_bytes", "window_words", "route_expand", "compact_bytes")
 CATEGORY_KERNELS = ("scan_sum", "window_words")
 REGEX_KERNELS = ("span_all", "scan_sum", "window_bytes", "route_compact", "route_expand")
+PARALLEL_KERNELS = ("scan_sum", "window_bytes", "window_words", "nfa_bits", "route_compact", "route_expand")
 
 
 def main() -> int:
     if sys.argv[1:] == ["--launch-checks"]:
         return _launch_check_process()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        rank, world, store, out = sys.argv[2:]
+        return _parallel_rank(int(rank), int(world), store, out)
     import torch
 
     if not torch.cuda.is_available():
@@ -4276,17 +4564,22 @@ def main() -> int:
     if short or not same:
         raise AssertionError(f"tracing: ops without a calls >= 1, bytes > 0 row {short}, identical {same}")
 
+    # the parallel path: a world of one over NCCL at the slice's 1M rows,
+    # then two ranks over gloo sharing the card
+    parallel_launches = _parallel_phase(torch, kernels, strs, t_main)
+
     paths = {"slice": slice_launches, "spans": span_launches, "matchers": matcher_launches,
              "hash": hash_launches, "compact": compact_launches, "text": text_launches,
              "clean": clean_launches, "convert": convert_launches, "category": category_launches,
-             "regex": regex_launches}
+             "regex": regex_launches, "parallel": parallel_launches}
     _emit({"phase": "launches", **paths})
     missing = []
     for path_name, need in (("slice", SLICE_KERNELS), ("spans", SPAN_KERNELS),
                             ("matchers", MATCHER_KERNELS), ("hash", HASH_KERNELS),
                             ("compact", COMPACT_KERNELS), ("text", TEXT_KERNELS),
                             ("clean", CLEAN_KERNELS), ("convert", CONVERT_KERNELS),
-                            ("category", CATEGORY_KERNELS), ("regex", REGEX_KERNELS)):
+                            ("category", CATEGORY_KERNELS), ("regex", REGEX_KERNELS),
+                            ("parallel", PARALLEL_KERNELS)):
         missing += [f"{path_name}: {k}" for k in need if paths[path_name][k] <= 0]
     if missing:
         raise AssertionError(f"kernels their path never launched: {missing}")
