@@ -1,0 +1,8 @@
+"""Mean wall ms of the regex_filter step over the traced passes (its span,
+synchronized at its end)."""
+
+from . import span_ms
+
+
+def read(ctx):
+    return span_ms(ctx, "regex_filter")
