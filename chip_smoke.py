@@ -194,8 +194,8 @@ Phases, each printing one JSON line:
                first-match call; each against its plain version,
                exactly, with its own bound
      tracing — the slice's three ops with utils.tracing enabled: a
-               report row each with calls >= 1 and bytes > 0, results
-               identical to the untraced run
+               span record each with calls >= 1 and host seconds > 0,
+               results identical to the untraced run
  12. parallel — custrings_tpu_torch.parallel on a world of one over NCCL
                (parallel.runtime.init_runtime with a FileStore in this
                process): shard_global of the 1M tweet rows, then
@@ -1315,6 +1315,16 @@ LAUNCH_CHECK_PROCESSES = 2
 _GROUP_MARK = "launch check: "
 
 
+def _device_counts(prof, cuda) -> dict:
+    """{name: count} of the device's kernels, copies and memsets in a
+    profile.  A record_function range (a launch check's group, the port's
+    spans) shows on the device too, as a user annotation under its host
+    name: those are left out."""
+    ka = prof.key_averages()
+    host = {e.key for e in ka if e.device_type != cuda}
+    return {e.key: e.count for e in ka if e.device_type == cuda and e.self_device_time_total > 0 and e.key not in host}
+
+
 def _launch_profile(torch, col):
     """torch.profiler over main-path calls of K4e, K1b, K6, K7 and K4c, all
     in one session (a record_function range a group): each expand_stream
@@ -1386,8 +1396,7 @@ def _launch_profile(torch, col):
                 torch.cuda.synchronize()
     launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("route_expand", "window_words", "hash",
                                                               "compact_bytes", "route_compact")}
-    found = {e.key: e.count for e in prof.key_averages()
-             if e.device_type == cuda and e.self_device_time_total > 0 and not e.key.startswith(_GROUP_MARK)}
+    found = _device_counts(prof, cuda)
     # a fill is a FillFunctor kernel or a memset, whichever torch takes;
     # the shapes of the tensors the fills wrote (torch.zeros records a
     # zero_, an explicit fill a fill_), by the group whose range holds them
@@ -1580,8 +1589,7 @@ def _scan_checks(torch, col):
             scan.cumsum0_i32(hi)
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    device_kernels = {e.key: e.count for e in prof.key_averages()
-                      if e.device_type == cuda and e.self_device_time_total > 0}
+    device_kernels = _device_counts(prof, cuda)
     scan_kernels = sum(c for k, c in device_kernels.items() if "scan_tiles" in k)
     _emit({"phase": "scan checks", "back_to_back_calls": len(sizes), "mismatched_calls": bad,
            "profiled_calls": calls, "device_kernels": device_kernels,
@@ -3959,9 +3967,9 @@ def _regex_kernel_shapes(torch, strs, device="cuda"):
 
 def _traced_slice(torch, strs, device="cuda"):
     """The slice's three ops (contains, replace, dictionary encode) through
-    the facades once untraced and once with tracing enabled: (the traced
-    ops' report rows {name: (calls, seconds, bytes)}, whether the results
-    are identical)."""
+    the facades once untraced and once with tracing enabled: (the spans'
+    records {name: (calls, total host seconds, self host seconds)},
+    whether the results are identical)."""
     from custrings_tpu_torch import nvcategory, nvstrings
     from custrings_tpu_torch.utils import tracing
 
@@ -3976,10 +3984,7 @@ def _traced_slice(torch, strs, device="cuda"):
     tracing.reset()
     with tracing.enabled():
         traced = run()
-    rows = {}
-    for line in tracing.report().splitlines()[1:]:
-        name, calls, secs, _, _ = line.split()
-        rows[name] = (int(calls), float(secs), tracing._records[name][2])
+    rows = {name: tuple(rec) for name, rec in tracing._records.items()}
     tracing.reset()
     return rows, plain == traced
 
@@ -4560,9 +4565,9 @@ def main() -> int:
     # tracing: the slice's three ops once with the wrappers active
     trace_rows, same = _traced_slice(torch, strs[:65536])
     _emit({"phase": "tracing", "rows": 65536, "report": trace_rows, "results_identical": same})
-    short = [op for op in TRACED_OPS if op not in trace_rows or trace_rows[op][0] < 1 or trace_rows[op][2] <= 0]
+    short = [op for op in TRACED_OPS if op not in trace_rows or trace_rows[op][0] < 1 or trace_rows[op][1] <= 0]
     if short or not same:
-        raise AssertionError(f"tracing: ops without a calls >= 1, bytes > 0 row {short}, identical {same}")
+        raise AssertionError(f"tracing: ops without a calls >= 1, seconds > 0 record {short}, identical {same}")
 
     # the parallel path: a world of one over NCCL at the slice's 1M rows,
     # then two ranks over gloo sharing the card

@@ -11,7 +11,16 @@ Public modules:
     custrings_tpu_torch.nvstrings   vectorized string ops
     custrings_tpu_torch.nvcategory  string and numeric dictionary encoding
     custrings_tpu_torch.nvtext      token-level utilities
-    custrings_tpu_torch.utils       CSV ingest, column statistics, per-op tracing
+    custrings_tpu_torch.utils       CSV ingest, column statistics, spans
+
+Spans (`utils.tracing`): every public op of the op modules (wrapped at
+import, below), the steps inside the regex filter, the tokenizer and the
+encode, each hand-written kernel's launch (`kernel.<name>`), the
+collectives of `parallel` and the ingest open a named span.  Spans are on
+while `tracing.enabled()` is active or the torch profiler runs; off, a
+span site costs two flag reads.  They never synchronize the device: their
+own times are host times, and device time per span comes from the
+profiler's device events inside each span's interval.
 """
 
 from .column import StringColumn  # noqa: F401
@@ -21,7 +30,7 @@ __version__ = "0.1.0"
 
 def _instrument():
     """Wrap the public ops of the op modules with utils.tracing.traced, as
-    custrings_tpu does, so that tracing measures the op layer."""
+    custrings_tpu does, so that each op is a span."""
     import importlib
 
     from .utils import tracing

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .config import bucket_bytes
+from .utils import tracing
 
 
 @dataclasses.dataclass(eq=False)
@@ -75,13 +76,11 @@ def from_numpy(data, offsets, validity, device) -> StringColumn:
     """Column from host arrays taken as they are, capacity padding included
     (for example a JAX column's three arrays)."""
     dev = _device(device)
-
-    def t(a, dtype):  # a private copy: the column never aliases caller memory
-        return torch.from_numpy(np.array(a, dtype=dtype, order="C")).to(dev)
-
-    return StringColumn(
-        data=t(data, np.uint8), offsets=t(offsets, np.int32), validity=t(validity, np.bool_)
-    )
+    with tracing.op("column.host_copies"):  # private: the column never aliases caller memory
+        host = [np.array(a, dtype=t, order="C")
+                for a, t in ((data, np.uint8), (offsets, np.int32), (validity, np.bool_))]
+    with tracing.op("column.upload"):
+        return StringColumn(*(torch.from_numpy(a).to(dev) for a in host))
 
 
 def _device_column(data_np, offsets_np, validity_np, device) -> StringColumn:
@@ -127,15 +126,16 @@ def from_host_strings(strs, device) -> StringColumn:
 def from_offsets_np(sbuf, obuf, scount, nbuf=None, *, device) -> StringColumn:
     """Column from Arrow-style host buffers (bytes, scount+1 int32 offsets,
     optional little-endian null bitmask with bit set = valid)."""
-    sbuf = np.asarray(sbuf).view(np.uint8).ravel()
-    obuf = np.asarray(obuf).view(np.int32).ravel()[: scount + 1]
-    total = int(obuf[-1]) if len(obuf) else 0
-    if nbuf is not None:
-        bits = np.unpackbits(np.asarray(nbuf).view(np.uint8).ravel(), bitorder="little")
-        validity = bits[:scount].astype(np.bool_)
-    else:
-        validity = np.ones(scount, dtype=np.bool_)
-    return _device_column(sbuf[:total], obuf, validity, device)
+    with tracing.op("column.from_offsets_np"):
+        sbuf = np.asarray(sbuf).view(np.uint8).ravel()
+        obuf = np.asarray(obuf).view(np.int32).ravel()[: scount + 1]
+        total = int(obuf[-1]) if len(obuf) else 0
+        if nbuf is not None:
+            bits = np.unpackbits(np.asarray(nbuf).view(np.uint8).ravel(), bitorder="little")
+            validity = bits[:scount].astype(np.bool_)
+        else:
+            validity = np.ones(scount, dtype=np.bool_)
+        return _device_column(sbuf[:total], obuf, validity, device)
 
 
 def _host_arrays(col: StringColumn):

@@ -6,23 +6,27 @@ plain C interface.  At first use on a CUDA tensor they are compiled by
 loaded with ctypes.  The library's file name carries a hash of the
 sources and headers, the nvcc flags and the nvcc path, so a change to any
 of them builds a new library instead of loading a stale one.  Nothing is
-built or imported when this module is imported, so the CPU tests (which
+built or loaded when this module is imported, so the CPU tests (which
 have no nvcc) import every module freely.
 
 Every C entry point takes raw device pointers, ints and the current
 stream, launches, and returns `cudaGetLastError()`; `check()` raises on
-a nonzero code.  `LAUNCHES` counts each kernel's launches: a wrapper adds
-one where it launches its kernel and nowhere else.
+a nonzero code.  `LAUNCHES` counts each kernel's launches: a wrapper
+launches its kernel inside `launched(name)`, which adds one and opens the
+span `kernel.<name>` (`utils.tracing`), and nowhere else.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
+
+from .utils import tracing
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -84,6 +88,43 @@ _SIGNATURES = {
     "cs_compact_bytes": ([_P, _P, _I64, _I64, _P, _P, _P], _I32),
     "cs_error_string": ([_I32], ctypes.c_char_p),
 }
+
+
+class _Counted:
+    """Adds one to LAUNCHES[name] when its block ends without raising."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, *exc):
+        if typ is None:
+            LAUNCHES[self.name] += 1
+        return False
+
+
+_COUNTED: dict = {}
+
+
+@contextlib.contextmanager
+def _counted_span(name: str):
+    with tracing.op("kernel." + name):
+        yield
+    LAUNCHES[name] += 1
+
+
+def launched(name: str):
+    """`with launched(name):` around the launch of kernel `name`: one more
+    in LAUNCHES[name] when the block ends without raising, inside span
+    `kernel.<name>` while spans are on.  Off, one check and a cached
+    counter."""
+    if tracing.on():
+        return _counted_span(name)
+    return _COUNTED.get(name) or _COUNTED.setdefault(name, _Counted(name))
 
 
 def reset_launches() -> None:

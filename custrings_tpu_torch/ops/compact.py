@@ -39,12 +39,12 @@ def _compact_launch(data: torch.Tensor, keep8: torch.Tensor, out_cap: int) -> to
     # the tile counter and status words start at 0 on every call
     scratch = torch.zeros(lib.cs_compact_bytes_scratch_words(data.shape[0]), dtype=torch.int64,
                           device=data.device)
-    err = lib.cs_compact_bytes(
-        data.data_ptr(), keep8.data_ptr(), data.shape[0], out_cap, out.data_ptr(),
-        scratch.data_ptr(), kernels.stream_ptr(data),
-    )
-    kernels.check(err, "compact_bytes")
-    kernels.LAUNCHES["compact_bytes"] += 1
+    with kernels.launched("compact_bytes"):
+        err = lib.cs_compact_bytes(
+            data.data_ptr(), keep8.data_ptr(), data.shape[0], out_cap, out.data_ptr(),
+            scratch.data_ptr(), kernels.stream_ptr(data),
+        )
+        kernels.check(err, "compact_bytes")
     return out
 
 

@@ -80,12 +80,12 @@ def _hash_launch(col: StringColumn) -> torch.Tensor:
     for t in (col.data, offsets):
         kernels.require_cuda(t, "hash")
     out = torch.empty(n, dtype=torch.int64, device=col.device)
-    err = kernels.lib().cs_hash(
-        col.data.data_ptr(), col.data.shape[0], offsets.data_ptr(), n, out.data_ptr(),
-        kernels.stream_ptr(col.data),
-    )
-    kernels.check(err, "hash")
-    kernels.LAUNCHES["hash"] += 1
+    with kernels.launched("hash"):
+        err = kernels.lib().cs_hash(
+            col.data.data_ptr(), col.data.shape[0], offsets.data_ptr(), n, out.data_ptr(),
+            kernels.stream_ptr(col.data),
+        )
+        kernels.check(err, "hash")
     return out
 
 

@@ -34,6 +34,7 @@ import torch
 
 from ..column import StringColumn, cumsum0
 from ..config import bucket_bytes
+from ..utils import tracing
 from . import segments
 from .route import expand_stream
 from .shift_compact import compact_arrays
@@ -189,9 +190,10 @@ def row_nonascii_ids(col: StringColumn) -> np.ndarray:
     over the bytes + one host fetch, cached)."""
     c = col.cache
     if "nonascii_rows" not in c:
-        hi0 = cumsum0(col.data >= 0x80)
-        mask = segments.per_row_of_prefix(hi0, col.offsets) > 0
-        c["nonascii_rows"] = np.nonzero(mask.cpu().numpy())[0]
+        with tracing.op("layout.row_nonascii_ids"):
+            hi0 = cumsum0(col.data >= 0x80)
+            mask = segments.per_row_of_prefix(hi0, col.offsets) > 0
+            c["nonascii_rows"] = np.nonzero(mask.cpu().numpy())[0]
     return c["nonascii_rows"]
 
 
@@ -200,11 +202,12 @@ def _host_row_stats(col: StringColumn):
     char count is its count of non-continuation bytes."""
     c = col.cache
     if "host_nchars" not in c:
-        cont = ((col.data & 0xC0) == 0x80) & valid_byte_mask(col)
-        cont0 = cumsum0(cont)
-        nch = col.lengths() - segments.per_row_of_prefix(cont0, col.offsets)
-        c["host_nchars"] = nch.cpu().numpy().astype(np.int64)
-        c["host_validity"] = col.validity.cpu().numpy()
+        with tracing.op("layout.host_row_stats"):
+            cont = ((col.data & 0xC0) == 0x80) & valid_byte_mask(col)
+            cont0 = cumsum0(cont)
+            nch = col.lengths() - segments.per_row_of_prefix(cont0, col.offsets)
+            c["host_nchars"] = nch.cpu().numpy().astype(np.int64)
+            c["host_validity"] = col.validity.cpu().numpy()
     return c["host_nchars"], c["host_validity"]
 
 
@@ -251,9 +254,13 @@ def length_buckets(col: StringColumn) -> list[LengthBucket] | None:
     ladder below the global max; tiny buckets merge upward.  None when
     bucketing would not cut the padded work below GAIN of one width."""
     c = col.cache
-    key = "length_buckets"
-    if key in c:
-        return c[key]
+    if "length_buckets" not in c:
+        with tracing.op("layout.length_buckets"):
+            c["length_buckets"] = _length_buckets(col)
+    return c["length_buckets"]
+
+
+def _length_buckets(col: StringColumn) -> list[LengthBucket] | None:
     res = None
     n = col.size
     if n >= MIN_ROWS:
@@ -302,7 +309,6 @@ def length_buckets(col: StringColumn) -> list[LengthBucket] | None:
                     )
                 )
             res = out
-    c[key] = res
     return res
 
 
@@ -393,9 +399,10 @@ def char_matrix(col: StringColumn, width: int | None = None):
     key = ("char_matrix", width)
     if key in c:
         return c[key]
-    na = torch.from_numpy(row_nonascii_ids(col)).to(col.device)
-    stream = _use_stream_view(col, width) and width >= max_row_bytes(col)
-    res = _char_matrix_hybrid(col, None, na, width, stream)
+    with tracing.op("layout.char_matrix"):
+        na = torch.from_numpy(row_nonascii_ids(col)).to(col.device)
+        stream = _use_stream_view(col, width) and width >= max_row_bytes(col)
+        res = _char_matrix_hybrid(col, None, na, width, stream)
     if col.size * width * 4 <= 2 * PLANE_CACHE_BUDGET:
         c[key] = res
     return res
@@ -406,11 +413,12 @@ def char_matrix_rows(col: StringColumn, bucket: LengthBucket):
     c = col.cache
     key = ("char_matrix_rows", bucket.width, bucket.nv)
     if key not in c:
-        na_all = row_nonascii_ids(col)
-        na_pos = np.nonzero(np.isin(bucket.idx_c.cpu().numpy(), na_all))[0]
-        c[key] = _char_matrix_hybrid(
-            col, bucket.idx_c, torch.from_numpy(na_pos).to(col.device), bucket.width
-        )
+        with tracing.op("layout.char_matrix_rows"):
+            na_all = row_nonascii_ids(col)
+            na_pos = np.nonzero(np.isin(bucket.idx_c.cpu().numpy(), na_all))[0]
+            c[key] = _char_matrix_hybrid(
+                col, bucket.idx_c, torch.from_numpy(na_pos).to(col.device), bucket.width
+            )
     return c[key]
 
 

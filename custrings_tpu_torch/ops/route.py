@@ -103,14 +103,14 @@ def _compact_launch(keep, planes, k0, want_k0):
         k0_out = buf[: n + 1] if want_k0 else None
         scratch = buf.data_ptr() + 4 * head
     k = len(planes)
-    err = lib.cs_compact(
-        keep.data_ptr(), None if k0 is None else k0.data_ptr(), n, k,
-        _PTRS[k](*[a.data_ptr() for a in planes]), _PTRS[k](*[o.data_ptr() for o in outs]),
-        _INTS[k](*[_ELEM_BYTES[a.dtype] for a in planes]),
-        None if k0_out is None else k0_out.data_ptr(), scratch, kernels.stream_ptr(keep),
-    )
-    kernels.check(err, "compact_stream")
-    kernels.LAUNCHES["route_compact"] += 1
+    with kernels.launched("route_compact"):
+        err = lib.cs_compact(
+            keep.data_ptr(), None if k0 is None else k0.data_ptr(), n, k,
+            _PTRS[k](*[a.data_ptr() for a in planes]), _PTRS[k](*[o.data_ptr() for o in outs]),
+            _INTS[k](*[_ELEM_BYTES[a.dtype] for a in planes]),
+            None if k0_out is None else k0_out.data_ptr(), scratch, kernels.stream_ptr(keep),
+        )
+        kernels.check(err, "compact_stream")
     if not want_k0:
         return outs, None
     return outs, k0 if k0 is not None else k0_out
@@ -169,16 +169,16 @@ def _expand_launch(live, dist, planes, out_cap, want_placed):
     scratch = torch.empty(lib.cs_expand_scratch_words(n), dtype=torch.int64, device=dev)
     scratch[-1:].fill_(0)  # the pre-pass's ticket: one word, not the outputs
     k = len(planes)
-    err = lib.cs_expand(
-        live.data_ptr(), dist.data_ptr(), n, out_cap, k,
-        _PTRS[k](*[a.data_ptr() for a in planes]),
-        _PTRS[k](*[o.data_ptr() for o in outs]),
-        _INTS[k](*[_ELEM_BYTES[a.dtype] for a in planes]),
-        placed.data_ptr() if want_placed else None, scratch.data_ptr(),
-        kernels.stream_ptr(live),
-    )
-    kernels.check(err, "expand_stream")
-    kernels.LAUNCHES["route_expand"] += 1
+    with kernels.launched("route_expand"):
+        err = lib.cs_expand(
+            live.data_ptr(), dist.data_ptr(), n, out_cap, k,
+            _PTRS[k](*[a.data_ptr() for a in planes]),
+            _PTRS[k](*[o.data_ptr() for o in outs]),
+            _INTS[k](*[_ELEM_BYTES[a.dtype] for a in planes]),
+            placed.data_ptr() if want_placed else None, scratch.data_ptr(),
+            kernels.stream_ptr(live),
+        )
+        kernels.check(err, "expand_stream")
     return outs, placed
 
 

@@ -69,12 +69,12 @@ def _launch(x: torch.Tensor, op: int, counter: str, shift: int = 0,
     out = torch.empty(n + shift, dtype=torch.int32, device=x.device)
     # the tile counter and status words start at 0 on every call
     scratch = torch.zeros(lib.cs_scan_scratch_words(n), dtype=torch.int64, device=x.device)
-    err = lib.cs_scan(
-        x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(), n, op, shift, add, lo, hi,
-        scratch.data_ptr(), kernels.stream_ptr(x),
-    )
-    kernels.check(err, "scan")
-    kernels.LAUNCHES[counter] += 1
+    with kernels.launched(counter):
+        err = lib.cs_scan(
+            x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(), n, op, shift, add, lo, hi,
+            scratch.data_ptr(), kernels.stream_ptr(x),
+        )
+        kernels.check(err, "scan")
     if counter == "scan_sum":
         kernels.SCAN_SUM_SIZES["capacity" if n >= 1 << 24 else "rows"] += 1
     return out

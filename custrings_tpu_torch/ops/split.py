@@ -33,6 +33,7 @@ import torch
 
 from ..column import BOUND_SYNC_THRESHOLD, StringColumn, cumsum0, empty_column
 from ..config import bucket_bytes
+from ..utils import tracing
 from . import layout, segments, shift_compact
 from .array import _gather_impl
 from .find import _find_impl, _match_mask, _pat_array
@@ -71,7 +72,8 @@ def _empty_tokens(col: StringColumn) -> TokenColumn:
 
 def _ragged_counts(col: StringColumn, body_fn, static_args, *args) -> int:
     """Total tokens of a split body's counts phase (one sync)."""
-    return int(body_fn(col, None, *static_args, *args).sum())
+    with tracing.op("split.ragged_counts"):
+        return int(body_fn(col, None, *static_args, *args).sum())
 
 
 def _ragged_extents(col: StringColumn, body_fn, static_args, *args):
@@ -81,23 +83,25 @@ def _ragged_extents(col: StringColumn, body_fn, static_args, *args):
     BOUND_SYNC_THRESHOLD the token slots are allocated at that bound
     without a sync (the fused route); over it the body's counts phase
     syncs the exact token count first (the count-first route)."""
-    tok_bound = col.capacity + col.size
-    if tok_bound * 8 <= BOUND_SYNC_THRESHOLD and col.capacity <= BOUND_SYNC_THRESHOLD:
-        tcap, bcap = bucket_bytes(tok_bound), col.capacity
-    else:
-        tcap = bucket_bytes(_ragged_counts(col, body_fn, static_args, *args))
-        bcap = bucket_bytes(col.capacity)
-    return (*body_fn(col, tcap, *static_args, *args), bcap)
+    with tracing.op("split.ragged_extents"):
+        tok_bound = col.capacity + col.size
+        if tok_bound * 8 <= BOUND_SYNC_THRESHOLD and col.capacity <= BOUND_SYNC_THRESHOLD:
+            tcap, bcap = bucket_bytes(tok_bound), col.capacity
+        else:
+            tcap = bucket_bytes(_ragged_counts(col, body_fn, static_args, *args))
+            bcap = bucket_bytes(col.capacity)
+        return (*body_fn(col, tcap, *static_args, *args), bcap)
 
 
 def _ragged_write(col: StringColumn, starts, byte_off, bcap: int) -> torch.Tensor:
     """uint8[bcap]: the token bytes.  The spans are disjoint and in source
     order and byte_off is the prefix of their sizes, so the output is the
     stable compaction of the covered source bytes (K4c), at every size."""
-    sizes = byte_off[1:] - byte_off[:-1]
-    keep = cover_spans(starts, starts + sizes, sizes > 0, col.capacity)
-    (data,), _ = shift_compact.compact_arrays(keep, [col.data], want_k0=False)
-    return _fit(data, bcap)
+    with tracing.op("split.ragged_write"):
+        sizes = byte_off[1:] - byte_off[:-1]
+        keep = cover_spans(starts, starts + sizes, sizes > 0, col.capacity)
+        (data,), _ = shift_compact.compact_arrays(keep, [col.data], want_k0=False)
+        return _fit(data, bcap)
 
 
 def _token_bytes(col: StringColumn, starts, ends, total_tokens: int, bcap: int | None = None) -> StringColumn:

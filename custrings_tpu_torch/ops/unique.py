@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..column import BOUND_SYNC_THRESHOLD, StringColumn, empty_column
+from ..utils import tracing
 from . import array, layout, segments
 from .array import _mask_word_tails, lsd_order, u32_key
 from .shift_compact import compact_arrays
@@ -205,13 +206,21 @@ def _rep_rank_phase(col, words, values_g, rep_full, u, ucap: int, width: int, fu
 def _encode_hashed(col: StringColumn, width: int, full_width: int):
     """Full hash-grouped encode.  Returns (values, key_rows, nkeys,
     ambiguous, u, ucap); syncs the group count once to size ucap."""
-    values_g, rep_full, u, words, amb_a = _hash_group_phase(col, width, full_width)
-    ucap = max(8, 1 << max(int(u) - 1, 1).bit_length())
+    with tracing.op("unique.hash_group"):
+        values_g, rep_full, u, words, amb_a = _hash_group_phase(col, width, full_width)
+        ucap = max(8, 1 << max(int(u) - 1, 1).bit_length())
     ucap = min(ucap, max(col.size, 8))
-    values, key_rows, nkeys, amb_b = _rep_rank_phase(
-        col, words, values_g, rep_full, u, ucap, width, full_width
-    )
+    with tracing.op("unique.rep_rank"):
+        values, key_rows, nkeys, amb_b = _rep_rank_phase(
+            col, words, values_g, rep_full, u, ucap, width, full_width
+        )
     return values, key_rows, nkeys, amb_a | amb_b, u, ucap
+
+
+def _ambiguous(flag: torch.Tensor) -> bool:
+    """The truncation ambiguity flag, read back: one sync a width."""
+    with tracing.op("unique.ambiguity_check"):
+        return bool(flag)
 
 
 def dictionary_encode(col: StringColumn):
@@ -223,25 +232,23 @@ def dictionary_encode(col: StringColumn):
         return empty_column(0, col.device), torch.zeros(0, dtype=torch.int32, device=col.device)
     full_width = -(-layout.max_row_bytes(col) // 4) * 4
     width = min(full_width, 64)
-    if n >= HASHED_MIN:
-        while True:
+    hashed = n >= HASHED_MIN
+    while True:
+        if hashed:
             values, key_rows, nkeys, ambiguous, _, _ = _encode_hashed(col, width, full_width)
-            if width >= full_width or not bool(ambiguous):
-                break
-            width = min(width * 4, full_width)
-        key_idx = key_rows[: int(nkeys)]
-    else:
-        while True:
-            ord_, _, values, first, ambiguous = _encode_sorted(col, width, full_width)
-            if width >= full_width or not bool(ambiguous):
-                break
-            width = min(width * 4, full_width)
-        key_idx = ord_[first]
-    if col.capacity <= BOUND_SYNC_THRESHOLD:
-        # the unique rows' bytes are bounded by the source capacity
-        keys = array._gather_impl(col, key_idx, col.capacity)
-    else:
-        keys = array.gather(col, key_idx.cpu().numpy())
+        else:
+            with tracing.op("unique.sorted_encode"):
+                ord_, _, values, first, ambiguous = _encode_sorted(col, width, full_width)
+        if width >= full_width or not _ambiguous(ambiguous):
+            break
+        width = min(width * 4, full_width)
+    with tracing.op("unique.gather_keys"):
+        key_idx = key_rows[: int(nkeys)] if hashed else ord_[first]
+        if col.capacity <= BOUND_SYNC_THRESHOLD:
+            # the unique rows' bytes are bounded by the source capacity
+            keys = array._gather_impl(col, key_idx, col.capacity)
+        else:
+            keys = array.gather(col, key_idx.cpu().numpy())
     return keys, values
 
 

@@ -77,13 +77,13 @@ def _launch_bytes(data, starts, width, out_dtype, lengths):
     out = torch.empty((rows, width), dtype=out_dtype, device=data.device)
     if rows == 0 or width == 0:
         return out
-    err = kernels.lib().cs_window_bytes(
-        data.data_ptr(), data.shape[0], starts.data_ptr(), lens_ptr, rows, width,
-        1 if out_dtype == torch.int32 else 0, out.data_ptr(),
-        kernels.stream_ptr(data),
-    )
-    kernels.check(err, "ragged_gather")
-    kernels.LAUNCHES["window_bytes"] += 1
+    with kernels.launched("window_bytes"):
+        err = kernels.lib().cs_window_bytes(
+            data.data_ptr(), data.shape[0], starts.data_ptr(), lens_ptr, rows, width,
+            1 if out_dtype == torch.int32 else 0, out.data_ptr(),
+            kernels.stream_ptr(data),
+        )
+        kernels.check(err, "ragged_gather")
     return out
 
 
@@ -119,10 +119,10 @@ def ragged_gather_words(data: torch.Tensor, starts: torch.Tensor, width: int) ->
     out = torch.empty((rows, wq), dtype=torch.int32, device=data.device)
     if rows == 0 or wq == 0:
         return out
-    err = kernels.lib().cs_window_words(
-        data.data_ptr(), data.shape[0], starts.data_ptr(), rows, wq,
-        out.data_ptr(), kernels.stream_ptr(data),
-    )
-    kernels.check(err, "ragged_gather_words")
-    kernels.LAUNCHES["window_words"] += 1
+    with kernels.launched("window_words"):
+        err = kernels.lib().cs_window_words(
+            data.data_ptr(), data.shape[0], starts.data_ptr(), rows, wq,
+            out.data_ptr(), kernels.stream_ptr(data),
+        )
+        kernels.check(err, "ragged_gather_words")
     return out

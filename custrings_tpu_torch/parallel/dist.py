@@ -34,6 +34,7 @@ from ..column import StringColumn
 from ..ops import array, modify, segments
 from ..ops.array import lsd_order, u32_key
 from ..ops.unique import dictionary_encode
+from ..utils import tracing
 
 #: column 0 of a key matrix row that stands for no key (sorts last)
 _SENTINEL = -1  # 0xFFFFFFFF as int32 bits
@@ -112,21 +113,25 @@ def _alive_rows(data, offsets, validity, alive) -> StringColumn:
 def _all_gather(x: torch.Tensor, group, S: int) -> torch.Tensor:
     """Every rank's x (equal shapes) stacked along dim 0, in rank order."""
     out = x.new_empty((S * x.shape[0], *x.shape[1:]))
-    _all_gather_single(out, x.contiguous(), group=group)
+    with tracing.op("parallel.all_gather"):
+        _all_gather_single(out, x.contiguous(), group=group)
     return out
 
 
 def _all_reduce(value, op, group, device) -> int:
     t = torch.as_tensor(value, dtype=torch.int64).to(device).reshape(1)
-    dist.all_reduce(t, op=op, group=group)
-    return int(t)
+    with tracing.op("parallel.all_reduce"):
+        dist.all_reduce(t, op=op, group=group)
+        return int(t)
 
 
 def _exchange(x: torch.Tensor, send: list[int], recv: list[int], group) -> torch.Tensor:
     """all_to_all of x's rows: send[i] rows (in order) to rank i, recv[i]
     rows from rank i."""
     out = x.new_empty((sum(recv), *x.shape[1:]))
-    dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv, input_split_sizes=send, group=group)
+    with tracing.op("parallel.exchange"):
+        dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv, input_split_sizes=send,
+                               group=group)
     return out
 
 
@@ -198,8 +203,9 @@ def _psrs_merge(K: torch.Tensor, group, S: int, me: int):
         part += ~_lex_less(K, splitters[i])
     send_t = torch.bincount(part, minlength=S)
     recv_t = torch.empty_like(send_t)
-    dist.all_to_all_single(recv_t, send_t, group=group)
-    send, recv = send_t.tolist(), recv_t.tolist()
+    with tracing.op("parallel.psrs_exchange"):
+        dist.all_to_all_single(recv_t, send_t, group=group)
+        send, recv = send_t.tolist(), recv_t.tolist()
     got = _exchange(K, send, recv, group)
     n = got.shape[0]
     ranks = torch.zeros(n, dtype=torch.int32, device=dev)

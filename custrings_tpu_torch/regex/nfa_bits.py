@@ -104,13 +104,13 @@ class NFABits(CharTables):
         for t in (chars, lens, table, ctab, bmp):
             kernels.require_cuda(t, "nfa_bits")
         out = torch.empty(N, dtype=torch.uint8, device=dev)
-        err = kernels.lib().cs_nfa_bits(
-            chars.data_ptr(), lens.data_ptr(), table.data_ptr(), table.shape[0],
-            ctab.data_ptr(), ctab.shape[0], bmp.data_ptr(), N, L,
-            1 if anchored else 0, out.data_ptr(), kernels.stream_ptr(chars),
-        )
-        kernels.check(err, "nfa_bits")
-        kernels.LAUNCHES["nfa_bits"] += 1
+        with kernels.launched("nfa_bits"):
+            err = kernels.lib().cs_nfa_bits(
+                chars.data_ptr(), lens.data_ptr(), table.data_ptr(), table.shape[0],
+                ctab.data_ptr(), ctab.shape[0], bmp.data_ptr(), N, L,
+                1 if anchored else 0, out.data_ptr(), kernels.stream_ptr(chars),
+            )
+            kernels.check(err, "nfa_bits")
         return out.bool()
 
     def _matches_plain(self, chars, lengths, anchored: bool):

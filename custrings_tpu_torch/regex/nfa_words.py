@@ -106,13 +106,13 @@ class NFAWords(CharTables):
         for t in (chars, lens, table, ctab, bmp):
             kernels.require_cuda(t, "nfa_words")
         out = torch.empty(N, dtype=torch.uint8, device=dev)
-        err = kernels.lib().cs_nfa_words(
-            chars.data_ptr(), lens.data_ptr(), table.data_ptr(), table.shape[0],
-            ctab.data_ptr(), ctab.shape[0], bmp.data_ptr(), N, L, self.W32,
-            1 if anchored else 0, out.data_ptr(), kernels.stream_ptr(chars),
-        )
-        kernels.check(err, "nfa_words")
-        kernels.LAUNCHES["nfa_words"] += 1
+        with kernels.launched("nfa_words"):
+            err = kernels.lib().cs_nfa_words(
+                chars.data_ptr(), lens.data_ptr(), table.data_ptr(), table.shape[0],
+                ctab.data_ptr(), ctab.shape[0], bmp.data_ptr(), N, L, self.W32,
+                1 if anchored else 0, out.data_ptr(), kernels.stream_ptr(chars),
+            )
+            kernels.check(err, "nfa_words")
         return out.bool()
 
     def _matches_plain(self, chars, lengths, anchored: bool):

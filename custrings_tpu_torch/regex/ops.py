@@ -43,6 +43,7 @@ from ..column import StringColumn, build_column, cumsum0, empty_column, row_ids_
 from ..config import bucket_bytes
 from ..ops import layout, route, segments, shift_compact, substr
 from ..ops.split import TokenColumn, _mask_column
+from ..utils import tracing
 from . import nfa_bits, nfa_words
 from .compiler import compile_pattern
 from .device import DeviceProgram
@@ -89,11 +90,12 @@ def _matches(col: StringColumn, pattern: str, anchored: bool) -> torch.Tensor:
 
     def engine(chars, nch, ascii=False):
         width = int(chars.shape[1])
-        if width >= thresh:
-            return dp.nfa_matches_chunked(chars, nch, anchored, _chunk_size(width), ascii)
-        if nfa is not None:
-            return nfa.matches(chars, nch, anchored)
-        return dp.nfa_matches(chars, nch, anchored, ascii)
+        with tracing.op("regex.engine"):
+            if width >= thresh:
+                return dp.nfa_matches_chunked(chars, nch, anchored, _chunk_size(width), ascii)
+            if nfa is not None:
+                return nfa.matches(chars, nch, anchored)
+            return dp.nfa_matches(chars, nch, anchored, ascii)
 
     if col.size == 0:
         return torch.zeros(0, dtype=torch.bool, device=col.device)

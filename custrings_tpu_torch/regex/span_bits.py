@@ -95,14 +95,14 @@ class SpanBits:
         B = torch.empty((N, W), dtype=torch.int32, device=dev)
         E = torch.empty((N, W), dtype=torch.int32, device=dev)
         scratch = torch.empty(((L + 32) // 32, N), dtype=torch.int32, device=dev)
-        err = kernels.lib().cs_span_all(
-            chars.data_ptr(), L, lens.data_ptr(), valid.data_ptr(), start.data_ptr(),
-            table.data_ptr(), table.shape[0], ctab.data_ptr(), ctab.shape[0], bmp.data_ptr(),
-            N, Rcap, int(counts_only), counts.data_ptr(), B.data_ptr(),
-            E.data_ptr(), scratch.data_ptr(), kernels.stream_ptr(chars),
-        )
-        kernels.check(err, "span_all")
-        kernels.LAUNCHES["span_all"] += 1
+        with kernels.launched("span_all"):
+            err = kernels.lib().cs_span_all(
+                chars.data_ptr(), L, lens.data_ptr(), valid.data_ptr(), start.data_ptr(),
+                table.data_ptr(), table.shape[0], ctab.data_ptr(), ctab.shape[0], bmp.data_ptr(),
+                N, Rcap, int(counts_only), counts.data_ptr(), B.data_ptr(),
+                E.data_ptr(), scratch.data_ptr(), kernels.stream_ptr(chars),
+            )
+            kernels.check(err, "span_all")
         return counts, B, E
 
     # -- the plain versions ----------------------------------------------

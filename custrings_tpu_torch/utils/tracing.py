@@ -1,42 +1,56 @@
-"""Per-op tracing: calls, wall time and payload bytes of each public op.
+"""Spans: the port's one tracing system, on the profiler's clock.
 
-Port of `custrings_tpu/utils/tracing.py`.  While tracing is active, every
-op wrapped by `traced` (the package wraps the public functions of its op
-modules at import, `custrings_tpu_torch._instrument`) runs inside a
-`torch.profiler.record_function` span of its name, and the device is
-synchronized before the clock is read, so the time is the op's own and
-not its enqueue.  Inactive, a wrapper costs one attribute check.
+Port of `custrings_tpu/utils/tracing.py`.  A span is a named stretch of
+host code: `with tracing.op(name): ...` inside a function body, or a
+function wrapped by `traced` (the package wraps the public functions of
+its op modules at import, `custrings_tpu_torch._instrument`).  Both open
+the same span.
+
+A span is on while `tracing.enabled()` is active or while the torch
+profiler runs (`torch.profiler.profile`, `tracing.device_trace`).  Off,
+a span site costs two flag reads.  On, a span
+
+  - runs inside `torch.profiler.record_function(name)`, so it is a
+    `user_annotation` event of the profiler's Chrome trace, on the clock
+    to which the profiler aligns the device's kernels, copies and
+    memsets;
+  - keeps a thread-local stack of open spans, so each knows its parent;
+  - adds to an in-memory record by name: calls, total host seconds and
+    self host seconds (total less the time its child spans cover).
+
+No span synchronizes the device: a span's host time is the time the
+host spent in it, launches included, not the device work it queued.
+Device time per span comes from the device trace: the device events
+that start inside the span's interval, and the idle stretches of the
+busy union that lie inside it.
 
 Usage:
     from custrings_tpu_torch.utils import tracing
     with tracing.enabled():
         ... run ops ...
-    print(tracing.report())
+    print(tracing.report())   # calls, total and self ms by span (host)
 
     with tracing.device_trace("traces/"):   # torch.profiler, CPU + CUDA
-        ... run ops ...
+        ... run ops ...                       # the spans are in the trace
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import functools
 import inspect
 import os
+import threading
 import time
 from collections import defaultdict
 
-import numpy as np
 import torch
+import torch.autograd.profiler as _profiler
 
-_records: dict = defaultdict(lambda: [0, 0.0, 0])  # name -> [calls, secs, bytes]
+_records: dict = defaultdict(lambda: [0, 0.0, 0.0])  # name -> [calls, total_s, self_s]
 _active = False
-
-# memory bandwidth used for the roofline %, settable by the user: the
-# NVIDIA H100 80GB HBM3's 3.35 TB/s (700.00 W power limit), as
-# chip_smoke._bound uses it
-HBM_BYTES_PER_SEC = 3.35e12
+_local = threading.local()
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -49,39 +63,62 @@ def enabled():
         _active = prev
 
 
-def _record(name: str, secs: float, nbytes: int) -> None:
-    rec = _records[name]
-    rec[0] += 1
-    rec[1] += secs
-    rec[2] += nbytes
-
-
-def _sync() -> None:
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
-@contextlib.contextmanager
-def op(name: str, nbytes: int = 0):
-    """Record one invocation of the enclosed code (wall time, the device
-    synchronized at its end)."""
-    if not _active:
-        yield
-        return
-    t0 = time.perf_counter()
+def _stack() -> list:
+    """This thread's open spans, innermost last."""
     try:
-        yield
-    finally:
-        _sync()
-        _record(name, time.perf_counter() - t0, nbytes)
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
+
+
+class _Span:
+    __slots__ = ("name", "_range", "_t0", "_child")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        _stack().append(self)
+        self._child = 0.0
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        total = time.perf_counter() - self._t0
+        stack = _stack()
+        stack.pop()
+        if stack:
+            stack[-1]._child += total
+        rec = _records[self.name]
+        rec[0] += 1
+        rec[1] += total
+        rec[2] += total - self._child
+        self._range.__exit__(*exc)
+        return False
+
+
+def on() -> bool:
+    """Whether spans are on: `enabled()` is active or the profiler runs."""
+    return _active or _profiler._is_profiler_enabled
+
+
+def op(name: str):
+    """A span over the enclosed code (see the module's docstring); a
+    no-op context while tracing is off and no profiler runs."""
+    if _active or _profiler._is_profiler_enabled:
+        return _Span(name)
+    return _OFF
 
 
 def report() -> str:
-    lines = ["op                         calls     total_s   GB/s    roofline%"]
-    for name, (calls, secs, nbytes) in sorted(_records.items()):
-        bw = (nbytes / secs / 1e9) if secs else 0.0
-        roof = 100.0 * (nbytes / secs) / HBM_BYTES_PER_SEC if secs else 0.0
-        lines.append(f"{name:<26} {calls:>5}  {secs:>10.4f}  {bw:>6.2f}  {roof:>8.2f}")
+    """A row a span name: calls, total and self milliseconds, all on the
+    host clock (device time per span is read from a device trace)."""
+    lines = ["span                            calls    total_ms     self_ms  (host clock)"]
+    for name, (calls, total, own) in sorted(_records.items()):
+        lines.append(f"{name:<30} {calls:>6}  {total * 1e3:>10.3f}  {own * 1e3:>10.3f}")
     return "\n".join(lines)
 
 
@@ -89,41 +126,16 @@ def reset():
     _records.clear()
 
 
-def _payload_bytes(obj) -> int:
-    """Bytes of the tensors and numpy arrays reachable from obj, through
-    StringColumns and other dataclasses, lists, tuples, sets and dicts.
-
-    A proxy for memory traffic: an op reads its inputs and writes its
-    outputs at least once, so in + out payload is its floor."""
-    if isinstance(obj, torch.Tensor):
-        return obj.numel() * obj.element_size()
-    if isinstance(obj, np.ndarray):
-        return int(obj.nbytes)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return sum(_payload_bytes(getattr(obj, f.name)) for f in dataclasses.fields(obj)
-                   if f.name != "cache")
-    if isinstance(obj, (list, tuple, set, frozenset)):
-        return sum(_payload_bytes(x) for x in obj)
-    if isinstance(obj, dict):
-        return sum(_payload_bytes(x) for x in obj.values())
-    return 0
-
-
 def traced(name: str):
-    """Wrap an op so each call, while tracing is active, records its wall
-    time and payload bytes under `name`."""
+    """Wrap an op so each call opens span `name` while spans are on."""
 
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            if not _active:
+            if not (_active or _profiler._is_profiler_enabled):
                 return fn(*args, **kwargs)
-            t0 = time.perf_counter()
-            with torch.profiler.record_function(name):
-                out = fn(*args, **kwargs)
-                _sync()
-            _record(name, time.perf_counter() - t0, _payload_bytes((args, kwargs, out)))
-            return out
+            with _Span(name):
+                return fn(*args, **kwargs)
 
         return wrapper
 
@@ -134,8 +146,8 @@ def instrument_module(mod, prefix: str, names=None) -> None:
     """Wrap every public function defined in `mod` itself with traced().
 
     Names a module imports from another (a kernel wrapper, say) stay
-    unwrapped, and underscore names are left alone, so tracing measures
-    whole ops, not their steps."""
+    unwrapped, and underscore names are left alone: the steps inside an
+    op open their spans with `op` in their bodies."""
     for n in names if names is not None else dir(mod):
         if n.startswith("_"):
             continue
@@ -149,7 +161,8 @@ def instrument_module(mod, prefix: str, names=None) -> None:
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """torch.profiler over the enclosed code, CPU and (where there is one)
-    CUDA activity, written to `logdir` as a Chrome trace."""
+    CUDA activity, written to `logdir` as a Chrome trace; the spans are
+    on inside it.  The profiler waits for the device when it stops."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -157,8 +170,5 @@ def device_trace(logdir: str):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities) as prof:
-        try:
-            yield prof
-        finally:
-            _sync()
+        yield prof
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

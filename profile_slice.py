@@ -452,8 +452,11 @@ def main() -> int:
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated() - base
-        ka = prof.key_averages()
         cuda = torch.autograd.DeviceType.CUDA
+        # the port's spans show on the device too, as user annotations
+        # under their host names: left out of the device time
+        host = {e.key for e in prof.key_averages() if e.device_type != cuda}
+        ka = [e for e in prof.key_averages() if e.device_type != cuda or e.key not in host]
         dev_ms = sum(e.self_device_time_total for e in ka if e.device_type == cuda) / 1e3
         top = sorted(ka, key=lambda e: -e.self_device_time_total)[:12]
         print(json.dumps({
