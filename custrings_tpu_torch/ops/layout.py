@@ -3,7 +3,8 @@
 Port of the main-path part of `custrings_tpu/ops/layout.py`: the
 memoized planes (`tail_plane`, `row_bounds_planes`), the ASCII facts
 (`is_ascii`, `row_nonascii_ids`), `max_row_bytes`, `padded_view`, `char_planes`,
-`char_matrix` / `char_matrix_rows`, the host-side `length_buckets`, the
+`char_matrix` / `char_matrix_rows`, `length_buckets` (decided from a few
+scalars read back: the row statistics stay on the device), the
 column-wide char index (`char_map`, `char_counts`, `codepoints`),
 `utf8_width`, `encode_codepoints` and `gather_bytes`.
 
@@ -28,6 +29,7 @@ positions into byte positions (span ops, `substr.slice_from`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -185,30 +187,102 @@ def char_planes(col: StringColumn):
     return padded_view(col, w).t().contiguous().to(torch.int32), lens
 
 
+#: how the row statistics engaged, and what they copied to the host:
+#: length_buckets decisions answered None by the width ladder alone, None
+#: by the cost test, or bucketed; row_nonascii_ids lookups that found no
+#: row against those that fetched row ids; the bytes all of these read
+#: back (`_read_back`).  Host counts of host-known sizes: counting reads
+#: nothing back.
+ROW_STATS = {"ladder_none": 0, "cost_none": 0, "bucketed": 0,
+             "nonascii_none": 0, "nonascii_fetched": 0, "host_bytes": 0}
+tracing.COUNTERS["layout.ROW_STATS"] = ROW_STATS
+
+
+def _read_back(t: torch.Tensor) -> np.ndarray:
+    """A copy of a device tensor on the host, its bytes counted in
+    ROW_STATS."""
+    ROW_STATS["host_bytes"] += t.numel() * t.element_size()
+    return t.to("cpu", copy=True).numpy()
+
+
+def _row_facts(col: StringColumn) -> tuple[bool, int]:
+    """(is_ascii, max_row_bytes), cached where those two cache them; when
+    neither is cached yet, both come from one read-back of two scalars
+    (the largest byte, the longest row)."""
+    c = col.cache
+    if "is_ascii" not in c and "max_row_bytes" not in c:
+        zero = torch.zeros((), dtype=torch.int64, device=col.device)
+        top = col.data.max().to(torch.int64) if col.capacity else zero
+        longest = col.lengths().max().to(torch.int64) if col.size else zero
+        top, longest = _read_back(torch.stack([top, longest])).tolist()
+        c["is_ascii"] = top < 0x80
+        c["max_row_bytes"] = max(bucket_bytes(longest), 8)
+    return is_ascii(col), max_row_bytes(col)
+
+
 def row_nonascii_ids(col: StringColumn) -> np.ndarray:
-    """Host int64[k]: ids of rows holding any non-ASCII byte (one K3 scan
-    over the bytes + one host fetch, cached)."""
+    """Host int64[k], ascending: ids of rows holding any non-ASCII byte,
+    cached.  The per-row flags stay on the device: an ASCII column
+    (`_row_facts`) answers empty with no further work; otherwise the flagged
+    rows' ids are compacted on the device (K3, K4c), their count is read
+    back, then the k ids."""
+    return _nonascii_rows(col)[0]
+
+
+def _nonascii_rows(col: StringColumn):
+    """(host int64[k], device int64[k]) non-ASCII row ids, cached."""
     c = col.cache
     if "nonascii_rows" not in c:
         with tracing.op("layout.row_nonascii_ids"):
-            hi0 = cumsum0(col.data >= 0x80)
-            mask = segments.per_row_of_prefix(hi0, col.offsets) > 0
-            c["nonascii_rows"] = np.nonzero(mask.cpu().numpy())[0]
+            ids = torch.zeros(0, dtype=torch.int64, device=col.device)
+            if col.size and not _row_facts(col)[0]:
+                hi0 = cumsum0(col.data >= 0x80)
+                flagged = segments.per_row_of_prefix(hi0, col.offsets) > 0
+                rows = torch.arange(col.size, dtype=torch.int32, device=col.device)
+                (got,), _ = compact_arrays(flagged, [rows], want_k0=False)
+                (k,) = _read_back(flagged.sum().reshape(1)).tolist()
+                ids = got[:k].to(torch.int64)
+            if ids.shape[0]:
+                ROW_STATS["nonascii_fetched"] += 1
+                c["nonascii_rows"] = (_read_back(ids), ids)
+            else:
+                ROW_STATS["nonascii_none"] += 1
+                c["nonascii_rows"] = (np.zeros(0, np.int64), ids)
     return c["nonascii_rows"]
 
 
+def _row_nchars(col: StringColumn):
+    """(int32[N] device char counts, the widest class: the longest count,
+    bucketed).  A row's char count is its count of non-continuation
+    bytes: its byte length in an ASCII column, whose widest class is
+    `max_row_bytes`; otherwise one K3 scan of the continuation bytes and
+    one scalar read-back."""
+    lens = col.lengths()
+    ascii, w_bytes = _row_facts(col)
+    if ascii:
+        return lens, w_bytes
+    cont = ((col.data & 0xC0) == 0x80) & valid_byte_mask(col)
+    nch = lens - segments.per_row_of_prefix(cumsum0(cont), col.offsets)
+    (longest,) = _read_back(nch.max().reshape(1)).tolist()
+    return nch, max(bucket_bytes(longest), 8)
+
+
 def _host_row_stats(col: StringColumn):
-    """(nchars int64[N], validity bool[N]) on the host, cached.  A row's
-    char count is its count of non-continuation bytes."""
-    c = col.cache
-    if "host_nchars" not in c:
-        with tracing.op("layout.host_row_stats"):
-            cont = ((col.data & 0xC0) == 0x80) & valid_byte_mask(col)
-            cont0 = cumsum0(cont)
-            nch = col.lengths() - segments.per_row_of_prefix(cont0, col.offsets)
-            c["host_nchars"] = nch.cpu().numpy().astype(np.int64)
-            c["host_validity"] = col.validity.cpu().numpy()
-    return c["host_nchars"], c["host_validity"]
+    """(ladder, per-class row counts, int64[N] device class of each row),
+    the last two None when the ladder has one width.  The statistics stay
+    on the device: the host reads back the longest row's char count (for
+    an ASCII column, `max_row_bytes`) and then, only for a ladder of two
+    or more widths, the class counts, at most MAX_BUCKETS ints.  A row's
+    class is the smallest ladder width >= its char count."""
+    nch, w_full = _row_nchars(col)
+    ladder = [w_full]
+    while len(ladder) < MAX_BUCKETS and ladder[-1] > 32:
+        ladder.append(max(bucket_bytes(ladder[-1] // 4), 8))
+    ladder = sorted(set(ladder))
+    if len(ladder) == 1:
+        return ladder, None, None
+    asn = torch.searchsorted(torch.tensor(ladder, dtype=nch.dtype, device=col.device), nch)
+    return ladder, _read_back(torch.bincount(asn, minlength=len(ladder))).tolist(), asn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,18 +291,22 @@ class LengthBucket:
 
     idx_c   int32[capR] device — row ids to GATHER (padding slots repeat 0)
     idx_s   int64[capR] device — row ids to SCATTER (padding slots = nrows)
-    idx_np  int64[nv]   host   — the real row ids
     vmask   bool[capR]  device — validity of the slot's row & real slot
     width   int                — char width of this bucket's matrix
     nv      int                — number of real rows in the bucket
+    idx_np  int64[nv]   host   — the real row ids, ascending, fetched at
+                                 the first read
     """
 
     idx_c: torch.Tensor
     idx_s: torch.Tensor
-    idx_np: np.ndarray
     vmask: torch.Tensor
     width: int
     nv: int
+
+    @functools.cached_property
+    def idx_np(self) -> np.ndarray:
+        return _read_back(self.idx_s[: self.nv])
 
 
 def _bucket_rows(n: int) -> int:
@@ -250,9 +328,12 @@ MIN_ROWS = 256
 
 def length_buckets(col: StringColumn) -> list[LengthBucket] | None:
     """Partition rows by char length so one long outlier stops taxing every
-    row (host numpy, as in the JAX package).  Widths follow a powers-of-4
-    ladder below the global max; tiny buckets merge upward.  None when
-    bucketing would not cut the padded work below GAIN of one width."""
+    row.  Widths follow a powers-of-4 ladder below the global max; tiny
+    buckets merge upward.  None when bucketing would not cut the padded
+    work below GAIN of one width.  The rows' statistics stay on the
+    device (`_host_row_stats`): the decision is made from at most two
+    small read-backs, and a bucket's row ids are compacted on the device.
+    The same buckets as the JAX package's host numpy."""
     c = col.cache
     if "length_buckets" not in c:
         with tracing.op("layout.length_buckets"):
@@ -261,55 +342,46 @@ def length_buckets(col: StringColumn) -> list[LengthBucket] | None:
 
 
 def _length_buckets(col: StringColumn) -> list[LengthBucket] | None:
-    res = None
     n = col.size
-    if n >= MIN_ROWS:
-        nch, val = _host_row_stats(col)
-        w_full = max(bucket_bytes(int(nch.max(initial=0))), 8)
-        ladder = [w_full]
-        while len(ladder) < MAX_BUCKETS and ladder[-1] > 32:
-            ladder.append(max(bucket_bytes(ladder[-1] // 4), 8))
-        ladder = sorted(set(ladder))
-        asn = np.searchsorted(np.asarray(ladder), nch, side="left")
-        counts = np.bincount(asn, minlength=len(ladder))
-        for b in range(len(ladder) - 1):
-            if 0 < counts[b] < max(MIN_ROWS // 2, 64):
-                asn[asn == b] = b + 1
-                counts[b + 1] += counts[b]
-                counts[b] = 0
-        cost_flat = n * w_full
-        cost_bk = sum(
-            _bucket_rows(int(counts[b])) * ladder[b]
-            for b in range(len(ladder))
-            if counts[b]
-        )
-        if len(ladder) > 1 and counts[-1] < n and cost_bk < GAIN * cost_flat:
-            dev = col.device
-            out = []
-            for b in range(len(ladder)):
-                if not counts[b]:
-                    continue
-                idx = np.nonzero(asn == b)[0]
-                nv = len(idx)
-                cap = _bucket_rows(nv)
-                idx_c = np.zeros(cap, np.int32)
-                idx_c[:nv] = idx
-                idx_s = np.full(cap, n, np.int64)
-                idx_s[:nv] = idx
-                vmask = np.zeros(cap, np.bool_)
-                vmask[:nv] = val[idx]
-                out.append(
-                    LengthBucket(
-                        torch.from_numpy(idx_c).to(dev),
-                        torch.from_numpy(idx_s).to(dev),
-                        idx,
-                        torch.from_numpy(vmask).to(dev),
-                        int(ladder[b]),
-                        nv,
-                    )
-                )
-            res = out
-    return res
+    if n < MIN_ROWS:
+        return None
+    with tracing.op("layout.host_row_stats"):
+        ladder, counts, asn = _host_row_stats(col)
+    if asn is None:
+        ROW_STATS["ladder_none"] += 1
+        return None
+    # merge tiny classes upward (into the next wider class); dest maps a
+    # row's class to the class it ends in
+    dest = list(range(len(ladder)))
+    for b in range(len(ladder) - 1):
+        if 0 < counts[b] < max(MIN_ROWS // 2, 64):
+            dest = [b + 1 if d == b else d for d in dest]
+            counts[b + 1] += counts[b]
+            counts[b] = 0
+    cost_flat = n * ladder[-1]
+    cost_bk = sum(_bucket_rows(counts[b]) * ladder[b] for b in range(len(ladder)) if counts[b])
+    if not (counts[-1] < n and cost_bk < GAIN * cost_flat):
+        ROW_STATS["cost_none"] += 1
+        return None
+    ROW_STATS["bucketed"] += 1
+    dev = col.device
+    cls = torch.tensor(dest, dtype=torch.int32, device=dev)[asn]
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    out = []
+    for b, nv in enumerate(counts):
+        if not nv:
+            continue
+        (got,), _ = compact_arrays(cls == b, [rows], want_k0=False)
+        ids = got[:nv]
+        cap = _bucket_rows(nv)
+        idx_c = torch.zeros(cap, dtype=torch.int32, device=dev)
+        idx_c[:nv] = ids
+        idx_s = torch.full((cap,), n, dtype=torch.int64, device=dev)
+        idx_s[:nv] = ids
+        vmask = torch.zeros(cap, dtype=torch.bool, device=dev)
+        vmask[:nv] = col.validity[ids.to(torch.int64)]
+        out.append(LengthBucket(idx_c, idx_s, vmask, int(ladder[b]), nv))
+    return out
 
 
 def char_width_from_lead(b: torch.Tensor) -> torch.Tensor:
@@ -400,7 +472,7 @@ def char_matrix(col: StringColumn, width: int | None = None):
     if key in c:
         return c[key]
     with tracing.op("layout.char_matrix"):
-        na = torch.from_numpy(row_nonascii_ids(col)).to(col.device)
+        na = _nonascii_rows(col)[1]
         stream = _use_stream_view(col, width) and width >= max_row_bytes(col)
         res = _char_matrix_hybrid(col, None, na, width, stream)
     if col.size * width * 4 <= 2 * PLANE_CACHE_BUDGET:
@@ -414,11 +486,10 @@ def char_matrix_rows(col: StringColumn, bucket: LengthBucket):
     key = ("char_matrix_rows", bucket.width, bucket.nv)
     if key not in c:
         with tracing.op("layout.char_matrix_rows"):
-            na_all = row_nonascii_ids(col)
-            na_pos = np.nonzero(np.isin(bucket.idx_c.cpu().numpy(), na_all))[0]
-            c[key] = _char_matrix_hybrid(
-                col, bucket.idx_c, torch.from_numpy(na_pos).to(col.device), bucket.width
-            )
+            na_pos = na_all = _nonascii_rows(col)[1]
+            if na_all.shape[0]:
+                na_pos = torch.isin(bucket.idx_c, na_all.to(torch.int32)).nonzero()[:, 0]
+            c[key] = _char_matrix_hybrid(col, bucket.idx_c, na_pos, bucket.width)
     return c[key]
 
 

@@ -28,7 +28,8 @@ Usage:
     from custrings_tpu_torch.utils import tracing
     with tracing.enabled():
         ... run ops ...
-    print(tracing.report())   # calls, total and self ms by span (host)
+    print(tracing.report())   # calls, total and self ms by span (host),
+                              # then the registered counters
 
     with tracing.device_trace("traces/"):   # torch.profiler, CPU + CUDA
         ... run ops ...                       # the spans are in the trace
@@ -48,6 +49,9 @@ import torch
 import torch.autograd.profiler as _profiler
 
 _records: dict = defaultdict(lambda: [0, 0.0, 0.0])  # name -> [calls, total_s, self_s]
+#: counters that report() prints after the spans, by name: a module that
+#: keeps one registers its {key: int} dict here, and reset() zeroes it
+COUNTERS: dict = {}
 _active = False
 _local = threading.local()
 _OFF = contextlib.nullcontext()
@@ -115,15 +119,22 @@ def op(name: str):
 
 def report() -> str:
     """A row a span name: calls, total and self milliseconds, all on the
-    host clock (device time per span is read from a device trace)."""
+    host clock (device time per span is read from a device trace); then a
+    row a registered counter that has counted anything."""
     lines = ["span                            calls    total_ms     self_ms  (host clock)"]
     for name, (calls, total, own) in sorted(_records.items()):
         lines.append(f"{name:<30} {calls:>6}  {total * 1e3:>10.3f}  {own * 1e3:>10.3f}")
+    for name, counts in sorted(COUNTERS.items()):
+        if any(counts.values()):
+            lines.append(f"{name}: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     return "\n".join(lines)
 
 
 def reset():
     _records.clear()
+    for counts in COUNTERS.values():
+        for k in counts:
+            counts[k] = 0
 
 
 def traced(name: str):

@@ -342,14 +342,16 @@ def test_views_route_a_cuda_column_to_the_window(monkeypatch, rows, width):
 def test_views_entry_points_never_stream(monkeypatch):
     """padded_view, char_matrix and the key words at the default route build
     no streaming view (K4c/K4e would raise here) and equal the JAX
-    package's window views."""
+    package's window views.  The column's non-ASCII row ids, which K4c
+    compacts, are cached first, as after the column's first op."""
 
     def refuse(*a, **k):
         raise AssertionError("the streaming route was taken")
 
+    t, j = _pair(MIXED + CORPUS[:60])
+    assert len(tlayout.row_nonascii_ids(t))
     monkeypatch.setattr(tlayout, "expand_stream", refuse)
     monkeypatch.setattr(tlayout, "compact_arrays", refuse)
-    t, j = _pair(MIXED + CORPUS[:60])
     full = -(-tlayout.max_row_bytes(t) // 4) * 4
     for w in (8, 64, full):
         np.testing.assert_array_equal(tlayout.padded_view(t, w).numpy(), np.asarray(jlayout.padded_view(j, w)))

@@ -203,6 +203,97 @@ def test_length_buckets_and_rows_parity():
         np.testing.assert_array_equal(mat.numpy()[: a.nv], np.asarray(jmat)[: b.nv])
 
 
+def _ascii_rows(n, seed, lo=19, hi=78):
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghij klmnopqrstuvwxyz", np.uint8)
+    return [bytes(rng.choice(letters, int(k))).decode() for k in rng.integers(lo, hi + 1, n)]
+
+
+def _bucket_cases():
+    """Columns that take each branch of length_buckets, the decision
+    ROW_STATS records for each (None: no decision, under MIN_ROWS) and
+    their non-ASCII rows (none, some or all)."""
+    short = _ascii_rows(300, 1)
+    cost = _ascii_rows(150, 2, 100, 100) + _ascii_rows(150, 3, 200, 200)
+    merged = _ascii_rows(400, 4) + ["ü" * 300] * 10 + ["x" * 2000] + [None, ""] * 3
+    on_widths = (short + ["é" * 128, "é" * 129, "日" * 512, "日" * 513, "😀" * 511]
+                 + ["ab" * 200] * 130 + ["x" * 2000, None])
+    return {
+        "few_rows": (MIXED, None),
+        "one_width": (short[:150] + [None, ""] * 10 + short[150:], "ladder_none"),
+        "cost_refused": (cost, "cost_none"),
+        "merged_upward": (merged, "bucketed"),
+        "on_ladder_widths": (on_widths, "bucketed"),
+        "all_null": ([None] * 300, "ladder_none"),
+        "all_empty": ([""] * 300, "ladder_none"),
+        "all_nonascii": (["é" * (k % 90 + 1) for k in range(300)], "ladder_none"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bucket_cases()))
+def test_length_buckets_and_nonascii_ids_parity(case):
+    """Every branch of the device-side row statistics against the JAX
+    package's host numpy: the same decision, buckets, widths, row counts,
+    ids, padding and validity, and the same non-ASCII row ids."""
+    strs, decision = _bucket_cases()[case]
+    t, j = _pair(strs)
+    before = dict(tlayout.ROW_STATS)
+    tb, jb = tlayout.length_buckets(t), jlayout.length_buckets(j)
+    na, jna = tlayout.row_nonascii_ids(t), jlayout.row_nonascii_ids(j)
+    moved = {k: v - before[k] for k, v in tlayout.ROW_STATS.items() if k != "host_bytes" and v != before[k]}
+    nonascii = "nonascii_fetched" if len(jna) else "nonascii_none"
+    assert moved == ({decision: 1, nonascii: 1} if decision else {nonascii: 1})
+    assert (tb is None) == (jb is None) == (decision != "bucketed")
+    assert na.dtype == np.int64
+    np.testing.assert_array_equal(na, jna)
+    if case == "merged_upward":
+        assert [b.width for b in tb] == [128, 2048] and tb[-1].nv == 11  # the 300-char class merged up
+    for a, b in zip(tb or [], jb or []):
+        assert (a.width, a.nv) == (b.width, b.nv)
+        assert a.idx_np.dtype == np.int64 and np.all(np.diff(a.idx_np) > 0)
+        np.testing.assert_array_equal(a.idx_np, b.idx_np)
+        np.testing.assert_array_equal(a.vmask.numpy(), np.asarray(b.vmask))
+        np.testing.assert_array_equal(a.idx_c.numpy(), np.asarray(b.idx_c))
+        np.testing.assert_array_equal(a.idx_s.numpy(), np.asarray(b.idx_s))
+        assert a.idx_c.dtype == torch.int32 and a.idx_s.dtype == torch.int64
+
+
+def test_the_none_path_reads_back_no_row_plane(monkeypatch):
+    """contains_re on a 10k-row ASCII column whose rows all fit one width:
+    one ladder-None decision and one zero-row non-ASCII lookup, counted
+    once (cached on a second call), from one read-back of two scalars,
+    at most 1 KiB; what the counter adds up is what was read back, and
+    counting never synchronizes the device."""
+    import re
+
+    from custrings_tpu_torch.regex import ops as rops
+    from custrings_tpu_torch.utils import tracing
+
+    sync = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: sync.append(1))
+    reads = []
+    read_back = tlayout._read_back
+    monkeypatch.setattr(tlayout, "_read_back", lambda x: reads.append(x.numel() * x.element_size()) or read_back(x))
+    strs = _ascii_rows(10_000, 9)
+    strs[::97] = [None] * len(strs[::97])
+    strs[5] = "some special and requests"
+    col = tcol.from_host_strings(strs, "cpu")
+    before = dict(tlayout.ROW_STATS)
+    got = rops.contains_re(col, "special.*requests")
+    moved = {k: v - before[k] for k, v in tlayout.ROW_STATS.items() if v != before[k]}
+    assert moved == {"ladder_none": 1, "nonascii_none": 1, "host_bytes": sum(reads)}
+    assert len(reads) == 1 and 0 < sum(reads) <= 1024
+    assert got.tolist() == [s is not None and re.search("special.*requests", s) is not None for s in strs]
+    after = dict(tlayout.ROW_STATS)
+    assert torch.equal(rops.contains_re(col, "special.*requests"), got)
+    assert tlayout.ROW_STATS == after and len(reads) == 1 and not sync
+    assert "layout.ROW_STATS: ladder_none=" in tracing.report()
+    tracing.reset()
+    assert not any(tlayout.ROW_STATS.values()) and "ROW_STATS" not in tracing.report()
+
+
 def _chip_smoke():
     import importlib.util
     import os
